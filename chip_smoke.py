@@ -4,12 +4,14 @@ NVIDIA Hopper GPU.
 
     python3 chip_smoke.py
 
-Runs from the root of a checkout and builds the column-sweep kernel (K1,
-particle3d_tpu_torch/csrc/celllist_sweep.cu) from its sources. Phases, in
-order; any failure exits non-zero:
+Runs from the root of a checkout and builds the port's kernels from their
+sources: the column sweep K1 (particle3d_tpu_torch/csrc/celllist_sweep.cu)
+and the all-pairs kernels K2, K3 and K4 (csrc/allpairs_sweep.cu). Phases,
+in order; any failure exits non-zero:
 
   1. device: name, and power limit as nvidia-smi reports it;
-  2. build K1 with nvcc (seconds, registers and spills);
+  2. build both libraries with nvcc, in parallel (seconds, registers and
+     spills of every kernel);
   3. K1 against its plain torch version on the same operands: the
      particle_life_large layout at N=262,144 (grid 24), periodic and
      walled at cap 32 and periodic at cap 64, then Lennard-Jones, gravity
@@ -21,16 +23,41 @@ order; any failure exits non-zero:
      bit-identical rerun, and ms/step;
   5. the `run` command (capacity ladder) for 48 steps at N=262,144, then
      the ms/step of a 16-step window at the capacity it ended on;
-  6. a 16-step simulate_dense window at N=1,048,576.
+  6. a 16-step simulate_dense window at N=1,048,576;
+  7. K3 against its plain version: 4,096 sampled receivers against all
+     262,144 sources of a particle_life_large_allpairs scene, then
+     same-set sweeps at N=1,536 for the four laws and with 12 species, and
+     at N=1,000 (a ragged receiver block);
+  8. K2 against its plain version at N=32,768 (particle life periodic and
+     walled, gravity with random masses, spring, Lennard-Jones on a
+     jittered lattice), at N=12,345 (97 tiles: odd count, ragged last
+     tile) and at N=262,144 (whole, and on 4,096 sampled receivers against
+     the plain rectangular sweep), then its mask mode against dense K2 on
+     a clustered N=32,768 scene;
+  9. K4 against its plain version at N=32,768 and N=12,345, and at
+     N=262,144 against dense K2 on the Morton-sorted particle_life_large
+     scene;
+ 10. the all-pairs paths: `run --preset particle_life_large_allpairs
+     --steps 4` (4 K2 launches), two steps of it rerun bit-identically, the
+     flagship step (reference scene, N=4,096) against plain all-pairs,
+     particle_life_large at N=1,536 (K3), verlet_elastic and gravity_nbody,
+     and simulate_culled on particle_life_large (16 steps, one K4 launch a
+     step, a bit-identical rerun);
+ 11. the capacity ladder's terminal rung: simulate_dense_adaptive at
+     N=262,144 with a dense blob, no sidecar and max_cap 64 falls back to
+     the culled rung.
 
 Tolerance for every force comparison: relative L2 error <= 1e-5 and max
-abs error <= 1e-4 * max|F|. Only the order of the sum over at most 864
-sources differs between K1 and its plain version. A comparison also fails
-if max|F| exceeds 1e6: such a scene is dominated by one near-singular
-pair, and the bounds would then pass a wrong kernel.
+abs error <= 1e-4 * max|F|. Between a kernel and its plain version only
+the order of the sums differs. A comparison also fails if max|F| exceeds
+1e6: such a scene is dominated by one near-singular pair, and the bounds
+would then pass a wrong kernel.
 
-The second-to-last line is a JSON record of each kernel (launches on the
-main path, error against the plain version, times); the last line is
+The second-to-last line is a JSON record of each kernel: launches on the
+path that drives it (each path runs with every count set to 0 just before
+it), error against the plain version, its time and the plain version's
+at the stated shape, and the bound (the larger of the operations over 67
+TFLOP/s FP32 and the bytes over 3.35 TB/s). The last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result.
 """
@@ -38,9 +65,12 @@ no result.
 from __future__ import annotations
 
 import json
+import math
+import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -54,6 +84,17 @@ N_LARGE = 262_144
 N_SMALL = 32_768
 N_DENSE = 20_000  # ~312 occupants per cell of a 4^3 grid
 STEPS = 16
+N_SAMPLE = 4096   # receivers sampled for checks against all sources
+N_RECT = 1536     # same-set K3 sweeps (below the N=2,048 switch to K2)
+# a ragged last tile and an odd tile count (97 tiles of 128; K3: 8 blocks)
+N_RAGGED = 12_345
+N_RAGGED_RECT = 1000
+N_FLAGSHIP = 4096
+N_BLOB = 2000     # particles packed into one cell for the terminal rung
+# H100 SXM peaks (the on-chip-measurement guide): FP32 outside the tensor
+# cores, and device memory
+PEAK_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 
 
 def log(msg):
@@ -64,10 +105,11 @@ def sync():
     torch.cuda.synchronize()
 
 
-def timed_ms(fn, reps):
+def timed_ms(fn, reps, warm=True):
     """Mean ms per call of ``fn`` on the card (CUDA events), after one
-    warm-up call with the same arguments."""
-    fn()
+    warm-up call with the same arguments unless ``warm`` is False."""
+    if warm:
+        fn()
     sync()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -105,18 +147,85 @@ def phase_device():
     log(f"[1] device: {name} (count {torch.cuda.device_count()}); "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(smi)
-    return name
+    return name, smi
 
 
 def phase_build():
-    from particle3d_tpu_torch.ops.celllist_sweep import build_kernel
+    from particle3d_tpu_torch.ops import allpairs_sweep, celllist_sweep
 
     t0 = time.perf_counter()
-    build_log = build_kernel()
-    log(f"[2] K1 built and loaded in {time.perf_counter() - t0:.2f} s")
+    libs = {"K1": celllist_sweep, "K2-K4": allpairs_sweep}
+    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
+        logs = dict(zip(libs, pool.map(lambda m: m.build_kernel(),
+                                       libs.values())))
+    log(f"[2] K1 and K2-K4 built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
+    for name, build_log in logs.items():
+        for line in _ptxas_summary(build_log):
+            log(f"  {name}: {line}")
+
+
+_LAWS = ("particle_life", "lennard_jones", "gravity", "spring")
+
+
+def _ptxas_summary(build_log):
+    """One line per compiled kernel (family, law, wrap, feature width):
+    registers, spill bytes and shared memory, from nvcc's -Xptxas -v."""
+    out, entry, spills = [], None, ""
     for line in build_log.splitlines():
-        if "registers" in line or "spill" in line or line.startswith("["):
-            log(f"  {line.strip()}")
+        m = re.search(r"(column_sweep|rect|tri|pairlist)_kernelI((?:L[ib]\d+E)+)",
+                      line)
+        if m:
+            args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2))]
+            entry = (f"{m.group(1)}<{_LAWS[args[0]]}, wrap={args[1]}"
+                     + (f", P={args[2]}" if len(args) > 2 else "") + ">")
+        elif entry and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            spills = f"spills {st}/{ld} B"
+        elif entry and "registers" in line:
+            regs = re.search(r"Used (\d+) registers", line).group(1)
+            smem = re.search(r"(\d+) bytes smem", line)
+            out.append(f"{entry}: {regs} registers, {spills}, smem "
+                       f"{smem.group(1) if smem else 0} B")
+            entry = None
+        elif line.startswith("["):
+            out.append(line.strip())
+    return out
+
+
+def bound(ops, nbytes):
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# FP32 operations a kernel does per pair (an FMA counts two, a square root
+# or a division one), for P feature columns. One-sided (K1, K3): deltas 3,
+# d^2 5, gate 1, coefficient 2P, particle-life law 13, sums 6, plus 9 for
+# K3's world-unit wrap. Two-sided (K2, K4), per unordered pair: deltas 3,
+# d^2 5, gates 2, two coefficients 4P, law parts 12, two scales and the row
+# mask 5, both sums 12, j-side products 3, plus 7 for the box-unit wrap
+# and the d^2 restore.
+def ops_one_sided(p, wrap):
+    return 28 + 2 * p + (9 if wrap else 0)
+
+
+def ops_two_sided(p, wrap):
+    return 42 + 4 * p + (7 if wrap else 0)
+
+
+def k1_pairs(ds, nsc, cap):
+    """Pairs K1 must evaluate on this layout: each occupied aligned slot
+    against the occupants of its 27 neighbouring supercells."""
+    occ = (ds.r2 > 0).reshape(nsc, nsc, nsc, cap).sum(-1).to(torch.float64)
+    nbr = sum(torch.roll(occ, (dx, dy, dz), (0, 1, 2))
+              for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
+    return float((occ * nbr).sum())
 
 
 def _sweep_case(label, state, cfg, reps):
@@ -133,9 +242,11 @@ def _sweep_case(label, state, cfg, reps):
     plain_ms, want = timed_ms(lambda: S.column_sweep_forces_ref(*ops, *args), 2)
     live = (ds.r2 > 0).reshape(nsc * nsc, nsc * cap)  # occupied, aligned
     pick = lambda f: f.permute(0, 2, 1)[live]  # noqa: E731
+    b = bound(k1_pairs(ds, nsc, cap) * ops_one_sided(ops[1].shape[1], False),
+              nbytes(*ops, got))
     log(f"  {label}: {int(live.sum())} receivers, K1 {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms")
-    return compare(label, pick(got), pick(want)), ms, plain_ms
+        f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
+    return compare(label, pick(got), pick(want)), ms, plain_ms, b
 
 
 def phase_sweeps():
@@ -210,12 +321,13 @@ def phase_main_path():
     from particle3d_tpu_torch.engine.step import simulate_dense
     from particle3d_tpu_torch.models import make_scene
     from particle3d_tpu_torch.ops import celllist_sweep as S
+    from particle3d_tpu_torch.ops import reset_kernel_launches
 
     log(f"[4] main path: simulate_dense, {STEPS} steps, N={N_LARGE}")
     st, cfg, dt = make_scene("particle_life_large", seed=0, n=N_LARGE,
                              device=DEVICE)
     sync()
-    S.KERNEL_LAUNCHES = 0
+    reset_kernel_launches()
     out, (mov, mis) = simulate_dense(st, cfg, dt, STEPS)
     sync()
     launches = S.KERNEL_LAUNCHES
@@ -279,6 +391,372 @@ def phase_1m():
     return _window_ms_per_step("particle_life_1m")
 
 
+def _sample(n, k, seed):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randperm(n, generator=gen)[:k].to(DEVICE)
+
+
+def _law_scenes(n, gen):
+    """(label, state, cfg) of particle life, Lennard-Jones, gravity (random
+    masses) and spring at N=n in a periodic box of side 0.5 * ceil(n^(1/3))
+    (world 16 at N=32,768; at least 4), Lennard-Jones on a jittered lattice
+    of spacing 0.5: uniform points would put near-coincident pairs under
+    its core."""
+    from particle3d_tpu_torch.config import reference_config
+    from particle3d_tpu_torch.state import init_scene
+
+    side = round(n ** (1 / 3))
+    while side ** 3 < n:
+        side += 1
+    w = max(4.0, 0.5 * side)  # particle life's radius 2 needs w >= 4
+    base = reference_config(world_size=w)
+    cfgs = {
+        "particle_life": base,
+        "lennard_jones": base.replace(force_law="lennard_jones",
+                                      particle_effect_radius=0.5,
+                                      lj_sigma=0.1, lj_epsilon=0.5),
+        "gravity": base.replace(force_law="gravity", particle_effect_radius=1.0,
+                                gravity_softening=0.05),
+        "spring": base.replace(force_law="spring", particle_effect_radius=0.75),
+    }
+    lin = (torch.arange(side) + 0.5) * 0.5 - w / 2
+    lattice = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), -1)
+    lattice = lattice.reshape(-1, 3)[:n] + 0.05 * torch.randn(n, 3, generator=gen)
+    out = []
+    for law, c in cfgs.items():
+        st = init_scene(gen, n, c, DEVICE)
+        st = st.replace(masses=0.5 + torch.rand(n, generator=gen).to(DEVICE))
+        if law == "lennard_jones":
+            st = st.replace(positions=lattice.to(DEVICE))
+        out.append((law, st, c))
+    return out
+
+
+def _wide_scene(n, gen):
+    """Particle life with 12 species: 12 feature columns, padded to 16."""
+    from particle3d_tpu_torch.config import SimConfig
+    from particle3d_tpu_torch.state import init_scene
+
+    side = round(n ** (1 / 3)) + 1
+    m = (torch.rand(12, 12, generator=gen) * 2 - 1).numpy()
+    cfg = SimConfig(id_count=12, world_size=max(4.0, 0.5 * side),
+                    attraction_matrix=m).validate()
+    return "particle_life, 12 species", init_scene(gen, n, cfg, DEVICE), cfg
+
+
+def phase_rect():
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.ops import forces as F
+
+    log(f"[7] K3 against its plain version ({N_SAMPLE} receivers x {N_LARGE} "
+        f"sources, then same-set at N={N_RECT})")
+    st, cfg, _ = make_scene("particle_life_large_allpairs", seed=0, n=N_LARGE,
+                            device=DEVICE)
+    u, v = F.pair_features(st, cfg)
+    idx = _sample(N_LARGE, N_SAMPLE, 3)
+    ops = A.rect_operands(st.positions[idx], u[idx], st.positions, v, cfg)
+    ms, got = timed_ms(lambda: A.rect_sweep(*ops), 10)
+    plain_ms, want = timed_ms(lambda: A.rect_sweep_ref(*ops), 2)
+    b = bound(N_SAMPLE * N_LARGE * ops_one_sided(ops[1].shape[1], True),
+              nbytes(*ops[:5], got))
+    log(f"  K3 {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]})")
+    err = compare(f"K3 {N_SAMPLE} x {N_LARGE}", got, want)
+    gen = torch.Generator().manual_seed(4)
+    scenes = [(n, *x) for n in (N_RECT,) for x in _law_scenes(n, gen)]
+    scenes += [(N_RECT, *_wide_scene(N_RECT, gen)),
+               (N_RAGGED_RECT, *_law_scenes(N_RAGGED_RECT, gen)[0])]
+    for n, label, s, c in scenes:
+        su, sv = F.pair_features(s, c)
+        o = A.rect_operands(s.positions, su, s.positions, sv, c)
+        compare(f"K3 {label} (N={n}, P={o[1].shape[1]})",
+                A.rect_sweep(*o), A.rect_sweep_ref(*o))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
+            "shape": f"{N_SAMPLE} receivers x {N_LARGE} sources"}
+
+
+def _tri_pair(st, cfg, mask=None):
+    """K2 and its plain version on the same operands: (forces, plain
+    forces)."""
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.ops import forces as F
+
+    u, v = F.pair_features(st, cfg)
+    ops = A.tri_operands(st.positions, u, v, cfg, A.KERNEL_TILE)
+    args = (cfg.force_law, bool(cfg.wrap_forces), A.KERNEL_TILE)
+    n = st.n
+    got = A.tri_forces(*A.tri_sweep(*ops, *args, mask=mask))[:n]
+    want = A.tri_forces(*A.tri_sweep_ref(*ops, *args, mask=mask))[:n]
+    return got, want
+
+
+def _morton_sorted(st, cfg):
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.state import ParticleState
+
+    order = torch.argsort(A.morton_keys(st.positions, cfg.world_size),
+                          stable=True)
+    return ParticleState(*(getattr(st, f)[order]
+                           for f in ParticleState.__dataclass_fields__))
+
+
+def phase_tri():
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.ops import forces as F
+
+    log(f"[8] K2 against its plain version (N={N_SMALL} and N={N_LARGE})")
+    gen = torch.Generator().manual_seed(5)
+    scenes = _law_scenes(N_SMALL, gen)
+    pl_st, pl_cfg = scenes[0][1], scenes[0][2]
+    scenes.insert(1, ("particle_life walled", pl_st,
+                      pl_cfg.replace(boundary="clamp", wrap_forces=False)))
+    for label, s, c in scenes:
+        compare(f"K2 {label} (N={N_SMALL})", *_tri_pair(s, c))
+    ragged = _law_scenes(N_RAGGED, gen)[0]
+    compare(f"K2 particle_life (N={N_RAGGED}, "
+            f"{-(-N_RAGGED // A.KERNEL_TILE)} tiles)",
+            *_tri_pair(ragged[1], ragged[2]))
+
+    st, cfg, _ = make_scene("particle_life_large_allpairs", seed=0, n=N_LARGE,
+                            device=DEVICE)
+    u, v = F.pair_features(st, cfg)
+    ops = A.tri_operands(st.positions, u, v, cfg, A.KERNEL_TILE)
+    args = (cfg.force_law, True, A.KERNEL_TILE)
+    ms, (oa, ob) = timed_ms(lambda: A.tri_sweep(*ops, *args), 3)
+    got = A.tri_forces(oa, ob)
+    b = bound(N_LARGE * (N_LARGE + 1) / 2 * ops_two_sided(ops[1].shape[1], True),
+              nbytes(*ops[:5], oa, ob))
+    del oa, ob
+    plain_ms, (pa, pb) = timed_ms(lambda: A.tri_sweep_ref(*ops, *args), 1,
+                                  warm=False)
+    want = A.tri_forces(pa, pb)
+    del pa, pb
+    log(f"  K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
+        f"({b[1]}); out_b {ops[0].shape[0] // A.KERNEL_TILE // 2 + 1} x 3 x "
+        f"{ops[0].shape[0]} floats")
+    err = compare(f"K2 N={N_LARGE}", got, want)
+    idx = _sample(N_LARGE, N_SAMPLE, 6)
+    rect = A.rect_sweep_ref(*A.rect_operands(st.positions[idx], u[idx],
+                                             st.positions, v, cfg))
+    compare(f"K2 N={N_LARGE} on {N_SAMPLE} receivers vs plain rectangular",
+            got[idx], rect)
+    del got, want
+
+    # mask mode: a clustered scene, Morton-sorted, against dense K2
+    c = scenes[0][2]
+    blob = scenes[0][1]
+    pos = blob.positions.clone()
+    half = N_SMALL // 2
+    pos[:half] = pos[:half] * 0.2 + 3.0
+    s = _morton_sorted(blob.replace(positions=pos), c)
+    su, sv = F.pair_features(s, c)
+    o = A.tri_operands(s.positions, su, sv, c, A.KERNEL_TILE)
+    mask, frac = A.culled_tile_mask(A._pad_rows(s.positions, o[0].shape[0]),
+                                    N_SMALL, A.KERNEL_TILE, c)
+    frac = float(frac)
+    if not frac < 1.0:
+        raise AssertionError(f"mask mode culled nothing (fraction {frac})")
+    a2 = (c.force_law, True, A.KERNEL_TILE)
+    masked = A.tri_forces(*A.tri_sweep(*o, *a2, mask=mask))
+    compare(f"K2 mask mode (surviving fraction {frac:.3f}) vs dense K2",
+            masked, A.tri_forces(*A.tri_sweep(*o, *a2)))
+    compare("K2 mask mode vs its plain version", masked,
+            A.tri_forces(*A.tri_sweep_ref(*o, *a2, mask=mask)))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
+            "shape": f"N={N_LARGE}, same set"}
+
+
+def _worklist_operands(st, cfg):
+    """K4's arguments for a Morton-sorted state, and the worklist size."""
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.ops import forces as F
+
+    t = A.KERNEL_TILE
+    u, v = F.pair_features(st, cfg)
+    ops = A.tri_operands(st.positions, u, v, cfg, t)
+    np_ = ops[0].shape[0]
+    mask = A.pair_survival_mask(A._pad_rows(st.positions, np_), st.n, t,
+                                np_ // t, cfg)
+    wp, count = A.build_pair_worklist(mask, np_ // t)
+    wi, wj = A.unpack_worklist(wp)
+    return (*ops[:5], wi, wj, ops[5], cfg.force_law, bool(cfg.wrap_forces),
+            t), count
+
+
+def phase_pairlist():
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.ops import forces as F
+
+    log(f"[9] K4 against its plain version (N={N_SMALL}), and against dense "
+        f"K2 at N={N_LARGE}")
+    gen = torch.Generator().manual_seed(7)
+    for n in (N_SMALL, N_RAGGED):
+        _, s, c = _law_scenes(n, gen)[0]
+        args, count = _worklist_operands(_morton_sorted(s, c), c)
+        wj = args[6]
+        compare(f"K4 particle_life (N={n}, {count} tile pairs)",
+                A.pairlist_forces(*A.pairlist_sweep(*args), wj)[:n],
+                A.pairlist_forces(*A.pairlist_sweep_ref(*args), wj)[:n])
+
+    st, cfg, _ = make_scene("particle_life_large", seed=0, n=N_LARGE,
+                            device=DEVICE)
+    st = _morton_sorted(st, cfg)
+    args, count = _worklist_operands(st, cfg)
+    wj = args[6]
+    ms, (oa, ob) = timed_ms(lambda: A.pairlist_sweep(*args), 5)
+    got = A.pairlist_forces(oa, ob, wj)
+    t = A.KERNEL_TILE
+    b = bound(count * t * t * ops_two_sided(args[1].shape[1], True),
+              nbytes(*args[:7], oa, ob))
+    plain_ms, (pa, pb) = timed_ms(lambda: A.pairlist_sweep_ref(*args), 1)
+    log(f"  K4 {ms:.3f} ms over {count} tile pairs (of "
+        f"{(N_LARGE // t) * (N_LARGE // t + 1) // 2}), plain {plain_ms:.3f} "
+        f"ms, bound {b[0]:.4f} ms ({b[1]})")
+    err = compare(f"K4 N={N_LARGE} vs its plain version", got,
+                  A.pairlist_forces(pa, pb, wj))
+    del pa, pb
+    u, v = F.pair_features(st, cfg)
+    compare(f"K4 N={N_LARGE} (step-0 forces of the culled rung) vs dense K2",
+            got, A.pallas_allpairs_forces_tri(st.positions, u, v, cfg))
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
+            "shape": f"N={N_LARGE}, {count} surviving tile pairs of {t}"}
+
+
+def _finite(label, state):
+    for name in ("positions", "velocities"):
+        if not bool(torch.isfinite(getattr(state, name)).all()):
+            raise AssertionError(f"{label}: non-finite {name}")
+
+
+def _expect(label, launches, want):
+    """Fail unless the path launched exactly the kernels in ``want``."""
+    got = {k: c for k, c in launches.items() if c}
+    log(f"  {label}: launches {got}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def phase_allpairs_paths():
+    from particle3d_tpu_torch.__main__ import main as cli
+    from particle3d_tpu_torch.engine.step import (simulate, simulate_culled,
+                                                  step, warmup)
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    log("[10] all-pairs paths")
+    launches = {}
+    log(f"  python -m particle3d_tpu_torch run --preset "
+        f"particle_life_large_allpairs --steps 4 (N={N_LARGE})")
+    sync()
+    reset_kernel_launches()
+    rec = cli(["run", "--preset", "particle_life_large_allpairs", "--steps",
+               "4", "--device", DEVICE])
+    by = rec["kernel_launches_by_kernel"]
+    _expect("run particle_life_large_allpairs", by, {"allpairs_tri": 4})
+    launches["allpairs_tri"] = by["allpairs_tri"]
+    stats = [rec["kinetic_energy"], rec["max_speed"], *rec["momentum"]]
+    if rec["n"] != N_LARGE or not all(math.isfinite(x) for x in stats):
+        raise AssertionError(f"run record not finite: {rec}")
+    log(f"  {rec['wall_s'] / 4 * 1e3:.3f} ms/step (host clock, 4 steps)")
+
+    st, cfg, dt = make_scene("particle_life_large_allpairs", seed=0,
+                             n=N_LARGE, device=DEVICE)
+    ms, a = timed_ms(lambda: simulate(st, cfg, dt, 2), 1, warm=False)
+    again = simulate(st, cfg, dt, 2)
+    _finite("simulate allpairs_pallas", a)
+    if not (torch.equal(a.positions, again.positions)
+            and torch.equal(a.velocities, again.velocities)):
+        raise AssertionError("simulate(allpairs_pallas): rerun not bit-identical")
+    log(f"  simulate(allpairs_pallas) N={N_LARGE}: {ms / 2:.3f} ms/step "
+        f"(CUDA events), rerun bit-identical")
+
+    st, cfg, dt = make_scene("reference", seed=0, n=N_FLAGSHIP, device=DEVICE)
+    cfg = cfg.replace(neighbor="allpairs_pallas")
+    reset_kernel_launches()
+    out = step(st, cfg, dt)
+    sync()
+    _expect(f"flagship step (reference, N={N_FLAGSHIP})", kernel_launches(),
+            {"allpairs_tri": 1})
+    ref = step(st, cfg.replace(neighbor="allpairs"), dt)
+    compare("flagship step velocities vs plain all-pairs", out.velocities,
+            ref.velocities)
+
+    st, cfg, dt = make_scene("particle_life_large", seed=0, n=N_RECT,
+                             device=DEVICE)
+    reset_kernel_launches()
+    out = simulate(st, cfg, dt, 4)
+    sync()
+    _expect(f"particle_life_large N={N_RECT}, 4 steps", kernel_launches(),
+            {"allpairs_rect": 4})
+    launches["allpairs_rect"] = 4
+    _finite("particle_life_large small", out)
+
+    for preset, steps in (("verlet_elastic", 4), ("gravity_nbody", 4)):
+        st, cfg, dt = make_scene(preset, seed=0, device=DEVICE)
+        reset_kernel_launches()
+        ms, out = timed_ms(lambda: simulate(warmup(st, cfg), cfg, dt, steps),
+                           1, warm=False)
+        _expect(f"{preset} N={st.n}, warm-up + {steps} steps",
+                kernel_launches(), {"allpairs_tri": steps + 1})
+        _finite(preset, out)
+        log(f"  {preset}: {ms / steps:.3f} ms/step (CUDA events)")
+
+    st, cfg, dt = make_scene("particle_life_large", seed=0, device=DEVICE)
+    sync()
+    reset_kernel_launches()
+    out, stats = simulate_culled(st, cfg, dt, STEPS)
+    sync()
+    _expect(f"simulate_culled N={st.n}, {STEPS} steps", kernel_launches(),
+            {"allpairs_pairlist": STEPS})
+    launches["allpairs_pairlist"] = STEPS
+    _finite("simulate_culled", out)
+    log(f"  stats: {stats}")
+    ms, again = timed_ms(lambda: simulate_culled(st, cfg, dt, STEPS)[0], 1,
+                         warm=False)
+    if not (torch.equal(again.positions, out.positions)
+            and torch.equal(again.velocities, out.velocities)):
+        raise AssertionError("simulate_culled: rerun not bit-identical")
+    log(f"  simulate_culled: {ms / STEPS:.3f} ms/step ({STEPS} steps incl. "
+        f"the Morton sort, CUDA events), rerun bit-identical")
+    return launches
+
+
+def phase_terminal_rung():
+    from particle3d_tpu_torch.engine.step import simulate_dense_adaptive
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    log(f"[11] terminal rung: simulate_dense_adaptive N={N_LARGE}, "
+        f"{N_BLOB} particles in one cell, ocap 0, max_cap 64")
+    st, cfg, dt = make_scene("particle_life_large", seed=0, device=DEVICE)
+    gen = torch.Generator().manual_seed(8)
+    pos = st.positions.clone()
+    w = float(cfg.world_size)
+    cell = w / cfg.cell_grid
+    centre = -w / 2 + (cfg.cell_grid // 2 + 0.5) * cell
+    pos[:N_BLOB] = (centre + (torch.rand(N_BLOB, 3, generator=gen) - 0.5)
+                    * 0.9 * cell).to(DEVICE)
+    st = st.replace(positions=pos)
+    sync()
+    reset_kernel_launches()
+    out, cap, hist = simulate_dense_adaptive(st, cfg, dt, STEPS, chunk=8,
+                                             max_cap=64, ocap=0,
+                                             verbose=lambda m: log(f"  {m}"))
+    sync()
+    got = kernel_launches()
+    log(f"  history {hist}, cap {cap}, launches "
+        f"{ {k: c for k, c in got.items() if c} }")
+    if not any(c == "allpairs" for _, c, _ in hist) or any(
+            m for _, _, m in hist) or sum(k for k, _, _ in hist) != STEPS:
+        raise AssertionError(f"terminal rung not taken or not exact: {hist}")
+    if got["allpairs_pairlist"] < 1:
+        raise AssertionError("the culled rung did not launch K4")
+    _finite("terminal rung", out)
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -286,18 +764,36 @@ def main():
         return 1
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    name = phase_device()
+    name, smi = phase_device()
     phase_build()
-    max_abs, ms, plain_ms = phase_sweeps()
-    launches, _ = phase_main_path()
+    max_abs, ms, plain_ms, b = phase_sweeps()
+    k1 = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound": b,
+          "shape": f"N={N_LARGE}, grid 24, cap 32"}
+    k1["launches"], _ = phase_main_path()
     phase_ladder()
     phase_1m()
+    k3 = phase_rect()
+    k2 = phase_tri()
+    k4 = phase_pairlist()
+    launches = phase_allpairs_paths()
+    phase_terminal_rung()
+    log(smi)  # the card and its power limit, beside the numbers below
+    src = "particle3d_tpu_torch/csrc/allpairs_sweep.cu"
+    table = [("celllist_sweep", "particle3d_tpu_torch/csrc/celllist_sweep.cu",
+              "particle3d_tpu/ops/pallas_celllist.py:50", k1),
+             ("allpairs_tri", src, "particle3d_tpu/ops/pallas_allpairs.py:369",
+              {**k2, "launches": launches["allpairs_tri"]}),
+             ("allpairs_rect", src, "particle3d_tpu/ops/pallas_allpairs.py:117",
+              {**k3, "launches": launches["allpairs_rect"]}),
+             ("allpairs_pairlist", src,
+              "particle3d_tpu/ops/pallas_allpairs.py:754",
+              {**k4, "launches": launches["allpairs_pairlist"]})]
     print(json.dumps({"kernels": [{
-        "name": "celllist_sweep", "route": "cuda",
-        "source": "particle3d_tpu_torch/csrc/celllist_sweep.cu",
-        "replaces": "particle3d_tpu/ops/pallas_celllist.py:50",
-        "launches": launches, "max_abs_err": max_abs,
-        "ms": ms, "plain_ms": plain_ms}]}))
+        "name": kname, "route": "cuda", "source": source, "replaces": repl,
+        "launches": r["launches"], "max_abs_err": r["max_abs_err"],
+        "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
+        "bound_by": r["bound"][1], "library_ms": None, "shape": r["shape"]}
+        for kname, source, repl, r in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

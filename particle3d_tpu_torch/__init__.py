@@ -2,22 +2,25 @@
 Hopper (H100).
 
 The JAX package ``particle3d_tpu`` stays the reference; this package
-imports torch and numpy only. Its first slice is the exact particle-life
-main path: the incrementally maintained dense cell layout, the overflow
-sidecar and the hand-written column-sweep kernel (K1,
-``csrc/celllist_sweep.cu``), driven by ``engine.step.simulate_dense`` and
-``python -m particle3d_tpu_torch run``.
+imports torch and numpy only. It carries the exact particle-life main
+path (the incrementally maintained dense cell layout, the overflow sidecar
+and the column-sweep kernel K1, ``csrc/celllist_sweep.cu``, driven by
+``engine.step.simulate_dense``) and the all-pairs backends with their
+kernels K2, K3 and K4 (``csrc/allpairs_sweep.cu``): ``allpairs_pallas``,
+``allpairs_culled`` and the capacity ladder's culled rung
+``simulate_culled``; ``python -m particle3d_tpu_torch run`` drives them.
 """
 
 from .config import SimConfig, reference_config, from_jax_config
 from .state import ParticleState, init_scene, from_numpy, from_jax_state
 from .engine.step import (step, simulate, trajectory, warmup, simulate_dense,
-                          simulate_dense_adaptive)
+                          simulate_dense_adaptive, simulate_culled)
 from .models import make_scene, list_presets
 
 __all__ = [
     "SimConfig", "reference_config", "from_jax_config",
     "ParticleState", "init_scene", "from_numpy", "from_jax_state",
     "step", "simulate", "trajectory", "warmup", "simulate_dense",
-    "simulate_dense_adaptive", "make_scene", "list_presets",
+    "simulate_dense_adaptive", "simulate_culled", "make_scene",
+    "list_presets",
 ]

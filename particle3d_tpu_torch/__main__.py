@@ -5,7 +5,8 @@
     python -m particle3d_tpu_torch presets
 
 ``run`` prints one JSON line: the JAX package's fields plus the number of
-force-kernel launches and, for the cell-list presets, the capacity
+force-kernel launches (``kernel_launches``, with one count per kernel in
+``kernel_launches_by_kernel``) and, for the cell-list presets, the capacity
 ladder's history. ``--device cuda`` (the default) never falls back to the
 CPU.
 """
@@ -41,7 +42,7 @@ def _sync(device: torch.device):
 def _cmd_run(a):
     from .engine.step import warmup
     from .models import make_scene
-    from .ops import celllist_sweep
+    from .ops import kernel_launches
     from .utils.metrics import measure_metrics
 
     device = torch.device(a.device)
@@ -51,18 +52,20 @@ def _cmd_run(a):
     state, cfg, dt = make_scene(a.preset, seed=a.seed, n=a.n, device=device)
     if a.dt:
         dt = a.dt
-    launches0 = celllist_sweep.KERNEL_LAUNCHES
+    launches0 = kernel_launches()
     _sync(device)
     t0 = time.perf_counter()
     state = warmup(state, cfg)
     state, history = _simulate_best(state, cfg, dt, a.steps)
     _sync(device)
     el = time.perf_counter() - t0
+    launches = {k: c - launches0[k] for k, c in kernel_launches().items()}
     rec = {"preset": a.preset, "n": state.n, "steps": a.steps,
            "device": str(device), "wall_s": round(el, 3),
            "steps_per_s": round(a.steps / el, 2),
            **measure_metrics(state).as_dict(),
-           "kernel_launches": celllist_sweep.KERNEL_LAUNCHES - launches0,
+           "kernel_launches": sum(launches.values()),
+           "kernel_launches_by_kernel": launches,
            "history": history}
     print(json.dumps(rec))
     return rec

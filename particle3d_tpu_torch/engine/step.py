@@ -14,6 +14,8 @@ package, which traces them as float32.
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
@@ -25,10 +27,8 @@ from .boundaries import apply_boundary
 
 # backends whose kernels are not ported yet, and where ROADMAP.md lists them
 _NOT_PORTED = {
-    "allpairs_pallas": "the all-pairs kernels K2/K3 (ROADMAP.md queue 2)",
-    "allpairs_culled": "the culled all-pairs kernel K4 (ROADMAP.md queue 2)",
     "allpairs_mxu": "the MXU all-pairs kernel K5 (ROADMAP.md queue 2)",
-    "celllist": "the XLA-style cell list (ROADMAP.md queue 1, 'all-pairs backends')",
+    "celllist": "the XLA-style cell list (ROADMAP.md queue 1)",
 }
 
 
@@ -43,6 +43,14 @@ def pair_accel(positions, state: ParticleState, cfg: SimConfig):
     u, v = F.pair_features(state, cfg)
     if cfg.neighbor == "allpairs":
         f = allpairs_forces(positions, u, v, cfg)
+    elif cfg.neighbor == "allpairs_pallas":
+        from ..ops.allpairs_sweep import pallas_allpairs_forces
+
+        f = pallas_allpairs_forces(positions, u, v, cfg)
+    elif cfg.neighbor == "allpairs_culled":
+        from ..ops.allpairs_sweep import pallas_allpairs_forces_culled
+
+        f = pallas_allpairs_forces_culled(positions, u, v, cfg)
     elif cfg.neighbor == "celllist_pallas":
         from ..ops.celllist_sweep import fresh_celllist_forces
 
@@ -236,47 +244,257 @@ def _dense_scan(ds0, cfg: SimConfig, dt, num_steps: int, nsc: int, cap: int,
     return ds, (mx_mov, mx_mis)
 
 
+
+
+def _sync(t: torch.Tensor):
+    """Wait for the card before a host clock is read: without it a timer
+    measures the enqueue, not the work."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def _culled_window(state: ParticleState, cfg: SimConfig, dt, num_steps: int,
+                   t: int):
+    """``num_steps`` steps of the culled rung on a Morton-sorted state. Each
+    step rebuilds the survival mask from the live positions and the exact
+    worklist of surviving tile pairs (``torch.nonzero``: one host sync a
+    step), then runs K4 over it. Returns ``(state, counts)``, the surviving
+    pair count of every force evaluation."""
+    from ..ops.allpairs_sweep import (_pad_rows, _round_to,
+                                      build_pair_worklist, pair_survival_mask,
+                                      pallas_allpairs_forces_pairlist)
+
+    n = state.n
+    np_ = _round_to(n, t)
+    nt = np_ // t
+    u, v = F.pair_features(state, cfg)
+    kick = float(F.kick_scale(cfg))
+    counts = []
+
+    def accel_fn(positions, st, c):
+        mask = pair_survival_mask(_pad_rows(positions.to(torch.float32), np_),
+                                  n, t, nt, c)
+        wp, count = build_pair_worklist(mask, nt)
+        counts.append(count)
+        return pallas_allpairs_forces_pairlist(positions, u, v, c, wp,
+                                               t=t) * kick
+
+    for _ in range(num_steps):
+        state = step(state, cfg, dt, accel_fn=accel_fn)
+    return state, counts
+
+
+def _culled_sort_phase(state: ParticleState, order_total, cfg: SimConfig):
+    """Morton-sort the state and compose the permutation. (The JAX package
+    also counts the sorted layout's surviving pairs here, to size its
+    static worklist; the port's worklist has no capacity.)"""
+    from ..ops.allpairs_sweep import morton_keys
+
+    order = torch.argsort(morton_keys(state.positions, cfg.world_size),
+                          stable=True)
+    state = ParticleState(*(getattr(state, f)[order]
+                            for f in ParticleState.__dataclass_fields__))
+    return state, order_total[order]
+
+
+def _culled_unsort_phase(state: ParticleState, order_total):
+    inv = torch.empty_like(order_total)
+    inv[order_total] = torch.arange(order_total.shape[0],
+                                    device=order_total.device)
+    return ParticleState(*(getattr(state, f)[inv]
+                           for f in ParticleState.__dataclass_fields__))
+
+
+def simulate_culled(state: ParticleState, cfg: SimConfig, dt, num_steps: int,
+                    window: int = 16, t: int | None = None):
+    """Exact trajectory through the worklist-culled all-pairs sweep (K4):
+    the terminal rung of the capacity ladder, for scenes clustered past
+    every cell capacity.
+
+    The state is Morton-sorted once per ``window`` steps (a stale order
+    only loosens tile bounds, never exactness, because every step rebuilds
+    the survival mask from the live positions). Every step builds the
+    exact worklist of surviving tile pairs with ``torch.nonzero`` (one host
+    sync) and K4 walks only those. The JAX package instead compacts into a
+    static worklist capacity ``wp_cap`` with quantised buckets and rewinds
+    a window that overflows it; an eager port needs none of that, so
+    ``retries`` is always 0 and ``wp_cap`` reports the largest worklist
+    seen.
+
+    Returns ``(state, stats)`` with the state back in particle order;
+    stats = dict(windows, retries, max_count, max_pair_frac,
+    mean_pair_frac, wp_cap).
+    """
+    from ..ops.allpairs_sweep import KERNEL_TILE, _round_to
+
+    n = state.n
+    t = KERNEL_TILE if t is None else t
+    np_ = _round_to(n, t)
+    nt = np_ // t
+    pairs_total = nt * (nt + 1) // 2
+    done = windows = max_count = 0
+    max_frac = mean_frac_acc = 0.0
+    order_total = torch.arange(n, device=state.positions.device)
+    while done < num_steps:
+        k = min(window, num_steps - done)
+        state, order_total = _culled_sort_phase(state, order_total, cfg)
+        state, counts = _culled_window(state, cfg, dt, k, t)
+        mx = max(counts) if counts else 0
+        max_count = max(max_count, mx)
+        max_frac = max(max_frac, mx / pairs_total)
+        mean_frac_acc += sum(counts) / (max(len(counts), 1) * pairs_total)
+        done += k
+        windows += 1
+    state = _culled_unsort_phase(state, order_total)
+    return state, {"windows": windows, "retries": 0, "max_count": max_count,
+                   "max_pair_frac": max_frac,
+                   "mean_pair_frac": mean_frac_acc / max(windows, 1),
+                   "wp_cap": max_count}
+
+
 def simulate_dense_adaptive(state: ParticleState, cfg: SimConfig, dt,
                             num_steps: int, chunk: int = 64,
                             nsc: int | None = None, cap: int | None = None,
                             max_cap: int = 512, verbose=None,
-                            ocap: int | None = None):
-    """Long-horizon exact cell-list driver with capacity escalation.
+                            probe_factor: float = 3.0,
+                            ocap: int | None = None,
+                            _timer=time.perf_counter):
+    """Long-horizon exact cell-list driver with capacity escalation and the
+    culled all-pairs rung (the JAX package's driver).
 
     Runs ``chunk``-step windows of ``simulate_dense``. A window that
     reports masked rows is rewound and re-run from its starting state at
-    double the capacity (up to ``max_cap``), so every committed window is
-    exact. K1 takes any capacity, so no feasibility model limits the
-    ladder. Masking that persists at ``max_cap`` raises: the culled
-    all-pairs rung that the JAX package falls back to needs K4, not ported
-    yet. Returns ``(state, cap, history)``, history listing ``(steps, cap,
-    masked)`` per committed window.
+    double the capacity, up to ``max_cap`` (K1 takes any capacity, so no
+    feasibility model limits the ladder). Masking that persists at
+    ``max_cap`` rewinds the window onto ``simulate_culled`` (K4), which
+    has no capacity at all; every committed window is exact.
+
+    The ladder is cost-aware: once a capacity's first window is behind it,
+    every window is wall-timed (after a device sync), and an escalated rung
+    slower than ``probe_factor`` x the cheapest committed rung, or any rung
+    at >= 4x the starting capacity, makes the next window run on the culled
+    rung as a probe (committed, not wasted); a faster probe switches the
+    run over. On the culled rung, every 8th window, or as soon as the
+    surviving-pair fraction halves from its value at the switch, re-probes
+    the cell path at the last working capacity, and a mask-free, faster
+    probe switches back. ``_timer`` replaces the clock (tests).
+
+    Returns ``(state, cap, history)``, history listing ``(steps,
+    cap_or_backend, masked)`` per committed window, with backend
+    ``"allpairs"`` for culled windows (always mask-free).
     """
     nsc = cfg.cell_grid if nsc is None else nsc
     cap = cfg.cell_capacity if cap is None else cap
     if nsc is None or cap is None:
         raise ValueError("simulate_dense_adaptive needs cfg.cell_grid / "
                          "cfg.cell_capacity")
+    say = verbose or (lambda msg: None)
+    cap0 = cap
+    fallback = False
     done = 0
     history = []
+    best_rung_sec = None   # cheapest committed cell-window sec/step
+    probe_pending = False  # the next window tries the culled rung
+    rung_sec = None        # sec/step of the window that triggered the probe
+    seen_caps = set()      # capacities whose first window is behind them
+    probed_caps = set()    # rungs already raced against the culled rung
+    culled_sec = None      # latest steady (non-first) culled sec/step
+    culled_seen = False
+    switch_frac = None     # mean pair fraction when the culled rung took over
+    fb_since_probe = 0     # culled windows since the last cell re-probe
+    reprobe_every = 8
     while done < num_steps:
         k = min(chunk, num_steps - done)
+        if fallback or probe_pending:
+            if fallback and not probe_pending and fb_since_probe >= reprobe_every:
+                fb_since_probe = 0
+                t0 = _timer()
+                outp, (_, misp) = simulate_dense(
+                    state, cfg.replace(cell_capacity=cap), dt, k, nsc=nsc,
+                    cap=cap, ocap=ocap)
+                masked_p = int(misp)
+                if masked_p == 0:
+                    _sync(outp.positions)
+                    secp = (_timer() - t0) / k
+                    state = outp
+                    done += k
+                    history.append((k, cap, 0))
+                    if culled_sec is not None and secp < culled_sec:
+                        fallback = False
+                        probed_caps.discard(cap)
+                        say(f"[adaptive] cell re-probe cap={cap} "
+                            f"{secp * 1e3:.0f} ms/step beats culled "
+                            f"({culled_sec * 1e3:.0f}) — back on the cell path")
+                    else:
+                        say(f"[adaptive] cell re-probe cap={cap} "
+                            f"{secp * 1e3:.0f} ms/step loses to culled "
+                            f"({(culled_sec or 0) * 1e3:.0f}) — staying culled")
+                    continue
+                say(f"[adaptive] cell re-probe cap={cap}: still masking — "
+                    f"staying culled (window rewound)")
+            t0 = _timer()
+            state, stc = simulate_culled(state, cfg, dt, k, window=min(k, 16))
+            frac = stc["mean_pair_frac"]
+            _sync(state.positions)
+            sec = (_timer() - t0) / k
+            done += k
+            history.append((k, "allpairs", 0))
+            if fallback:
+                fb_since_probe += 1
+                if culled_seen:
+                    culled_sec = sec
+                else:
+                    culled_seen = True  # the first culled window is not timed
+                    switch_frac = frac
+                if switch_frac is not None and frac < 0.5 * switch_frac:
+                    fb_since_probe = reprobe_every  # dispersed: re-probe next
+            if probe_pending:
+                probe_pending = False
+                if rung_sec is not None and sec < rung_sec:
+                    fallback = True
+                    say(f"[adaptive] culled probe {sec * 1e3:.0f} ms/step "
+                        f"beats rung cap={cap} ({rung_sec * 1e3:.0f}) — "
+                        f"switching to the culled backend")
+                elif not fallback:
+                    say(f"[adaptive] culled probe {sec * 1e3:.0f} ms/step "
+                        f"loses to rung cap={cap} ({(rung_sec or 0) * 1e3:.0f})"
+                        f" — staying on the cell path")
+            continue
+        t0 = _timer()
         out, (_, mis) = simulate_dense(state, cfg.replace(cell_capacity=cap),
                                        dt, k, nsc=nsc, cap=cap, ocap=ocap)
         masked = int(mis)
+        _sync(out.positions)
+        sec = (_timer() - t0) / k
         if masked > 0:
-            if cap >= max_cap:
-                raise RuntimeError(
-                    f"step {done}: {masked} rows masked at max_cap={max_cap}; "
-                    f"the culled all-pairs rung (K4) that would take over is "
-                    f"not ported yet (ROADMAP.md queue 2, K4)")
-            new_cap = min(2 * cap, max_cap)
-            if verbose:
-                verbose(f"[adaptive] step {done}: {masked} capacity-masked at "
-                        f"cap={cap} -> rewinding window, cap={new_cap}")
-            cap = new_cap
+            if cap < max_cap:
+                new_cap = min(2 * cap, max_cap)
+                say(f"[adaptive] step {done}: {masked} capacity-masked at "
+                    f"cap={cap} -> rewinding window, cap={new_cap}")
+                cap = new_cap
+                continue
+            fallback = True
+            say(f"[adaptive] step {done}: {masked} masked at max_cap={cap} — "
+                f"rewinding window, falling back to the culled all-pairs "
+                f"sweep (exact)")
             continue
         state = out
         done += k
         history.append((k, cap, masked))
+        if cap in seen_caps:
+            if best_rung_sec is None or sec < best_rung_sec:
+                best_rung_sec = sec
+            slow = best_rung_sec is not None and sec > probe_factor * best_rung_sec
+            deep = cap >= 4 * cap0
+            if (cap > cap0 and cap not in probed_caps and (slow or deep)
+                    and done < num_steps):
+                probe_pending = True
+                probed_caps.add(cap)
+                rung_sec = sec
+                why = (f"{sec / best_rung_sec:.1f}x the cheapest rung" if slow
+                       else f"deep rung (>= 4x cap0={cap0})")
+                say(f"[adaptive] rung cap={cap} at {sec * 1e3:.0f} ms/step: "
+                    f"{why} — probing the culled backend")
+        else:
+            seen_caps.add(cap)
     return state, cap, history

@@ -1,26 +1,35 @@
-"""Named scene presets (port of ``particle3d_tpu.models.presets``, the
-presets of the exact particle-life path).
+"""Named scene presets (port of ``particle3d_tpu.models.presets``).
 
-Every preset is ``(generator, n, device) -> (state, cfg, dt)``. Scenes are
-drawn from a CPU ``torch.Generator`` seeded by ``make_scene``, so a seed
-gives the same scene on every device (not the JAX package's scene: the two
-frameworks' generators differ).
+Every preset is ``(generator, n, device) -> (state, cfg, dt)`` with the
+JAX package's geometry, law, integrator and ``dt``. Scenes are drawn from
+a CPU ``torch.Generator`` seeded by ``make_scene``, so a seed gives the
+same scene on every device (not the JAX package's scene: the two
+frameworks' generators differ). ``lj_gas`` is not ported: below N=32,768
+it needs the XLA-style cell list.
 """
 
 from __future__ import annotations
 
 from typing import Callable
 
+import numpy as np
 import torch
 
-from ..config import reference_config
-from ..state import init_scene
+from ..config import SimConfig, reference_config
+from ..state import ParticleState, init_scene, resolve_device, to_device
 
 
 def _reference(gen, n, device):
     """The reference app's demo: N=1000 particle-life, periodic box."""
     n = 1000 if n is None else n
     cfg = reference_config()
+    return init_scene(gen, n, cfg, device), cfg, 1.0 / 60.0
+
+
+def _reference_walls(gen, n, device):
+    """The reference demo in a clamped box (forces still wrap)."""
+    n = 1000 if n is None else n
+    cfg = reference_config().replace(boundary="clamp")
     return init_scene(gen, n, cfg, device), cfg, 1.0 / 60.0
 
 
@@ -48,10 +57,79 @@ def _particle_life_1m(gen, n, device):
     return init_scene(gen, n, cfg, device), cfg, 1.0 / 60.0
 
 
+def _particle_life_large_allpairs(gen, n, device):
+    """Large-N particle life on the all-pairs kernels: K2 from N=2,048."""
+    n = 262144 if n is None else n
+    cfg = reference_config(world_size=40.0).replace(neighbor="allpairs_pallas")
+    return init_scene(gen, n, cfg, device), cfg, 1.0 / 60.0
+
+
+def _verlet_elastic(gen, n, device):
+    """N=16,384 springs, velocity Verlet, elastic walls, all-pairs kernels."""
+    n = 16384 if n is None else n
+    cfg = SimConfig(
+        force_law="spring", spring_stiffness=2.0, spring_rest_length=0.4,
+        particle_effect_radius=0.8, world_size=12.0,
+        integrator="velocity_verlet", boundary="reflect", restitution=1.0,
+        coefficient=0.0, neighbor="allpairs_pallas", wrap_forces=False,
+    ).validate()
+    st = init_scene(gen, n, cfg, device)
+    vel = 0.5 * torch.randn((n, 3), generator=gen, dtype=torch.float32)
+    return st.replace(velocities=vel.to(st.positions.device)), cfg, 2e-3
+
+
+def _gravity_nbody(gen, n, device):
+    """N=65,536 gravitating bodies: a Gaussian cloud with solid-body spin,
+    leapfrog, all-pairs kernels, masses uniform in [0.5, 1.5] / N."""
+    n = 65536 if n is None else n
+    cfg = SimConfig(
+        force_law="gravity", gravity_constant=0.05, gravity_softening=0.05,
+        particle_effect_radius=10.0, world_size=20.0, integrator="leapfrog",
+        boundary="wrap", coefficient=0.0, neighbor="allpairs_pallas",
+        wrap_forces=False,
+    ).validate()
+    f = torch.float32
+    pos = 1.5 * torch.randn((n, 3), generator=gen, dtype=f)
+    omega = torch.tensor([0.0, 0.0, 0.35], dtype=f).expand(n, 3)
+    vel = torch.linalg.cross(omega, pos)
+    vel = vel + 0.02 * torch.randn((n, 3), generator=gen, dtype=f)
+    masses = (0.5 + torch.rand(n, generator=gen, dtype=f)) / n
+    st = ParticleState(pos, vel, torch.zeros(n, dtype=torch.int64), masses,
+                       torch.zeros((n, 3), dtype=f))
+    return to_device(st, device), cfg, 5e-3
+
+
+def _spring_lattice(gen, n, device):
+    """Hookean springs on a cubic lattice (spacing 0.25) falling in a
+    reflecting box: the jelly-cube demo, on the plain all-pairs backend."""
+    n = 4096 if n is None else n
+    cfg = SimConfig(
+        force_law="spring", spring_stiffness=8.0, spring_rest_length=0.5,
+        particle_effect_radius=0.75, world_size=16.0,
+        integrator="velocity_verlet", boundary="reflect", restitution=0.8,
+        coefficient=0.2, neighbor="allpairs", wrap_forces=False,
+        acceleration=np.array([0.0, -2.0, 0.0], np.float32),
+    ).validate()
+    side = round(n ** (1 / 3))
+    while side ** 3 < n:
+        side += 1
+    half = 0.25 * side * 0.5
+    lin = torch.linspace(-half, half, side, dtype=torch.float32)
+    grid = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), -1)
+    st = init_scene(gen, n, cfg, device)
+    return (st.replace(positions=grid.reshape(-1, 3)[:n].to(st.positions.device)),
+            cfg, 2e-3)
+
+
 PRESETS: dict[str, Callable] = {
     "reference": _reference,
+    "reference_walls": _reference_walls,
     "particle_life_large": _particle_life_large,
     "particle_life_1m": _particle_life_1m,
+    "particle_life_large_allpairs": _particle_life_large_allpairs,
+    "verlet_elastic": _verlet_elastic,
+    "gravity_nbody": _gravity_nbody,
+    "spring_lattice": _spring_lattice,
 }
 
 
@@ -59,10 +137,13 @@ def list_presets() -> list[str]:
     return sorted(PRESETS)
 
 
-def make_scene(name: str, seed: int = 0, n: int | None = None, device="cpu"):
-    """-> (state, cfg, dt) for a ported preset."""
+def make_scene(name: str, seed: int = 0, n: int | None = None,
+               device="cuda"):
+    """-> (state, cfg, dt) for a ported preset, on the card unless
+    ``device`` says otherwise (raises without a card)."""
     if name not in PRESETS:
         raise KeyError(f"preset {name!r} is not ported; ported presets: "
                        f"{list_presets()}")
+    device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
-    return PRESETS[name](gen, n, torch.device(device))
+    return PRESETS[name](gen, n, device)

@@ -1,1 +1,17 @@
-"""Force operations and the K1 kernel wrapper."""
+"""Force operators of the port and the launch counts of their kernels."""
+
+
+def kernel_launches() -> dict[str, int]:
+    """Launches of every hand-written kernel since the last reset."""
+    from . import allpairs_sweep, celllist_sweep
+
+    return {"celllist_sweep": celllist_sweep.KERNEL_LAUNCHES,
+            **allpairs_sweep.KERNEL_LAUNCHES}
+
+
+def reset_kernel_launches():
+    from . import allpairs_sweep, celllist_sweep
+
+    celllist_sweep.KERNEL_LAUNCHES = 0
+    for name in allpairs_sweep.KERNEL_LAUNCHES:
+        allpairs_sweep.KERNEL_LAUNCHES[name] = 0

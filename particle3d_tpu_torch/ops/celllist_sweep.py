@@ -297,12 +297,12 @@ def fresh_celllist_forces(positions, u, v, cfg: SimConfig,
     if nsc is None or cap is None:
         raise NotImplementedError(
             "deriving cell_grid / cell_capacity from the config is not "
-            "ported yet (ROADMAP.md queue 1, 'all-pairs backends'): set "
+            "ported yet (ROADMAP.md queue 1, 'the XLA-style cell list'): set "
             "cfg.cell_grid and cfg.cell_capacity")
     if nsc < 3:
         raise NotImplementedError(
             f"cell_grid={nsc} < 3 needs the XLA-style cell list, not ported "
-            f"yet (ROADMAP.md queue 1, 'all-pairs backends')")
+            f"yet (ROADMAP.md queue 1, 'the XLA-style cell list')")
     check_cell_width(cfg, nsc)
     if u.shape[1] < PAIR_P:
         u = torch.nn.functional.pad(u, (0, PAIR_P - u.shape[1]))

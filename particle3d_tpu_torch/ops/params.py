@@ -99,3 +99,43 @@ def gated_scale(law: str, d2, in_r, coef, pf):
     else:
         raise ValueError(law)
     return torch.where(valid, s, torch.zeros_like(s))
+
+
+def pair_parts(law: str, d2, valid, pf):
+    """The triangular kernels' two-direction law (``pair_law.cuh::
+    pair_parts``): ``(rep, base, is_rep)``, the coefficient-free parts of
+    each unordered pair, with ``d2`` in world units. Invalid pairs park at
+    d2 = 1; particle life's shape is not masked there (as in the Pallas
+    body), the other laws zero ``base``. ``rep`` and ``is_rep`` are None
+    except for particle life."""
+    p = [float(x) for x in pf]
+    safe = torch.where(valid, d2, torch.ones_like(d2))
+    if law == "particle_life":
+        d = torch.sqrt(safe)
+        inv_d = sdiv(1.0, d)
+        rep = p[PF_INV_M] - inv_d
+        base = torch.clamp(1.0 - torch.abs(d * p[PF_T2] - p[PF_TC]),
+                           min=0.0) * inv_d
+        return rep, base, d < p[PF_M]
+    if law == "lennard_jones":
+        inv_d2 = sdiv(1.0, safe)
+        a = p[PF_LJ_S2] * inv_d2
+        a3 = a * a * a
+        s = (p[PF_LJ24E] * inv_d2) * (a3 - 2.0 * a3 * a3)
+    elif law == "gravity":
+        inv = sdiv(1.0, torch.sqrt(safe + p[PF_G_S2]))
+        s = p[PF_G] * (inv * inv * inv)
+    elif law == "spring":
+        inv_d = sdiv(1.0, torch.sqrt(safe))
+        s = p[PF_K] * (1.0 - p[PF_L] * inv_d)
+    else:
+        raise ValueError(law)
+    return None, torch.where(valid, s, torch.zeros_like(s)), None
+
+
+def directional_scale(parts, coef):
+    """One direction's scale from ``pair_parts`` and that direction's
+    coefficient."""
+    rep, base, is_rep = parts
+    s = coef * base
+    return s if is_rep is None else torch.where(is_rep, rep, s)

@@ -5,6 +5,9 @@ an explicit CPU ``torch.Generator`` and then moves the scene to the
 requested device, so one seed gives the same scene on the CPU and on the
 card. It cannot give ``jax.random``'s numbers: parity tests build states
 with numpy (``from_numpy``) or convert JAX states (``from_jax_state``).
+
+Entry points default to the card (``device="cuda"``) and raise without
+one; the plain torch path runs only when the caller asks for the CPU.
 """
 
 from __future__ import annotations
@@ -36,6 +39,17 @@ class ParticleState:
         return dataclasses.replace(self, **kw)
 
 
+def resolve_device(device) -> torch.device:
+    """``torch.device(device)``; raises for a CUDA device when no card is
+    present, so a default never falls back to the host."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {str(device)!r}: no CUDA device is "
+                           f"available (use device='cpu' to run the plain "
+                           f"torch path)")
+    return device
+
+
 def init_scene(generator: torch.Generator, n: int, cfg: SimConfig,
                device) -> ParticleState:
     """Positions uniform in [-world/2, world/2]^3, zero velocities, species
@@ -56,8 +70,11 @@ def to_device(st: ParticleState, device) -> ParticleState:
 
 
 def from_numpy(positions, velocities, species, masses=None, accel=None,
-               device="cpu") -> ParticleState:
-    """Build a state from host arrays."""
+               device="cuda") -> ParticleState:
+    """Build a state from host arrays, on the card unless ``device`` says
+    otherwise."""
+    device = resolve_device(device)
+
     def t(a, dtype):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
@@ -71,7 +88,7 @@ def from_numpy(positions, velocities, species, masses=None, accel=None,
         t(np.zeros((n, 3)) if accel is None else accel, torch.float32))
 
 
-def from_jax_state(st, device="cpu") -> ParticleState:
+def from_jax_state(st, device="cuda") -> ParticleState:
     """Convert a JAX ``particle3d_tpu.state.ParticleState`` (read through
     numpy, so the port never imports jax)."""
     return from_numpy(np.asarray(st.positions), np.asarray(st.velocities),

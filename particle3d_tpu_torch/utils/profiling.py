@@ -4,9 +4,14 @@ package's ``utils.profiling``).
     python -m particle3d_tpu_torch.utils.profiling --out build/profile
     python -m particle3d_tpu_torch.utils.profiling --preset particle_life_large \\
         --cap 64 --out build/profile
+    python -m particle3d_tpu_torch.utils.profiling --path culled \\
+        --preset particle_life_large --out build/profile
 
-For each preset: the all-in ms/step of a 16-step and a 32-step
-``simulate_dense`` window (best of two, after a warm-up), the marginal
+For each preset: the all-in ms/step of a 16-step and a 32-step window of
+the chosen path (best of two, after a warm-up): ``dense``
+(``simulate_dense``, the default), ``culled`` (``simulate_culled``, one
+Morton sort per window) or ``simulate`` (the preset's own backend,
+e.g. ``allpairs_pallas``); the marginal
 ms/step between them, and a ``torch.profiler`` run over one 16-step window
 giving the device's busy time (kernel events only), its idle share against
 the unprofiled window of the same length (the profiler slows the host),
@@ -42,14 +47,29 @@ def _wall_s(fn, device):
     return time.perf_counter() - t0
 
 
-def profile_window(state, cfg, dt, steps: int = WINDOW, top: int = 25,
-                   trace_path: str | None = None):
-    """Time and profile ``simulate_dense`` windows from ``state``. Device
-    fields are None when the state is not on a CUDA device."""
-    from ..engine.step import simulate_dense
+PATHS = ("dense", "culled", "simulate")
 
+
+def _path_fn(path: str):
+    from ..engine import step as engine
+
+    if path == "dense":
+        return engine.simulate_dense
+    if path == "culled":
+        return lambda st, cfg, dt, k: engine.simulate_culled(st, cfg, dt, k,
+                                                             window=k)
+    if path == "simulate":
+        return engine.simulate
+    raise ValueError(f"unknown path {path!r}; one of {PATHS}")
+
+
+def profile_window(state, cfg, dt, steps: int = WINDOW, top: int = 25,
+                   trace_path: str | None = None, path: str = "dense"):
+    """Time and profile windows of ``path`` from ``state``. Device fields
+    are None when the state is not on a CUDA device."""
+    fn = _path_fn(path)
     device = state.positions.device
-    run = lambda k: simulate_dense(state, cfg, dt, k)  # noqa: E731
+    run = lambda k: fn(state, cfg, dt, k)  # noqa: E731
     for k in (steps, 2 * steps):
         run(k)
     times = {steps: [], 2 * steps: []}
@@ -64,7 +84,8 @@ def profile_window(state, cfg, dt, steps: int = WINDOW, top: int = 25,
     if trace_path:
         prof.export_chrome_trace(trace_path)
     ka = prof.key_averages()
-    rec = {"n": state.n, "cell_capacity": cfg.cell_capacity, "steps": steps,
+    rec = {"n": state.n, "path": path, "neighbor": cfg.neighbor,
+           "cell_capacity": cfg.cell_capacity, "steps": steps,
            "window_ms_per_step": t1 / steps * 1e3,
            "window2_ms_per_step": t2 / (2 * steps) * 1e3,
            "marginal_ms_per_step": (t2 - t1) / steps * 1e3,
@@ -97,6 +118,7 @@ def main(argv=None):
     p.add_argument("--cap", type=int, default=None,
                    help="override the preset's cell capacity")
     p.add_argument("--steps", type=int, default=WINDOW)
+    p.add_argument("--path", choices=PATHS, default="dense")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--out", default=os.path.join("build", "profile"))
@@ -116,9 +138,11 @@ def main(argv=None):
         if a.cap is not None:
             cfg = cfg.replace(cell_capacity=a.cap)
         tag = preset if a.cap is None else f"{preset}_cap{a.cap}"
+        if a.path != "dense":
+            tag = f"{tag}_{a.path}"
         rec, ka = profile_window(
             state, cfg, dt, a.steps,
-            trace_path=os.path.join(a.out, f"trace_{tag}.json"))
+            trace_path=os.path.join(a.out, f"trace_{tag}.json"), path=a.path)
         table = ka.table(sort_by="self_cuda_time_total" if device.type == "cuda"
                          else "self_cpu_time_total", row_limit=40)
         with open(os.path.join(a.out, f"profile_{tag}.txt"), "w") as f:

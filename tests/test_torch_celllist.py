@@ -56,7 +56,7 @@ def _scene(n, seed):
 
 def _both_states(n, seed):
     pos, vel, sp = _scene(n, seed)
-    return jax_from_numpy(pos, vel, sp), from_numpy(pos, vel, sp)
+    return jax_from_numpy(pos, vel, sp), from_numpy(pos, vel, sp, device="cpu")
 
 
 def _np(x):

@@ -47,7 +47,7 @@ def _scene(n, seed, speed=0.3):
     sp = rng.integers(0, 5, n).astype(np.int32)
     m = rng.uniform(0.5, 1.5, n).astype(np.float32)
     return (jax_from_numpy(pos, vel, sp, masses=m),
-            P.from_numpy(pos, vel, sp, masses=m))
+            P.from_numpy(pos, vel, sp, masses=m, device="cpu"))
 
 
 def _close(got, want, rtol=1e-5, atol=1e-6):

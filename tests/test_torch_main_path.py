@@ -43,7 +43,7 @@ def _states(n, seed, clump=0):
         pos[:clump] = np.float32(1.1) + rng.uniform(0, 0.3, (clump, 3))
     vel = rng.normal(0, 0.3, (n, 3)).astype(np.float32)
     sp = rng.integers(0, 5, n).astype(np.int32)
-    return jax_from_numpy(pos, vel, sp), P.from_numpy(pos, vel, sp)
+    return jax_from_numpy(pos, vel, sp), P.from_numpy(pos, vel, sp, device="cpu")
 
 
 def _close(got, want, rtol=1e-4, atol=1e-5):
@@ -119,13 +119,21 @@ def test_adaptive_escalates_and_stays_exact():
 
 
 def test_adaptive_raises_when_ladder_ends():
+    """Masking at max_cap no longer raises: every window falls back to the
+    culled rung (K4's plain version here), commits mask-free, and the
+    trajectory matches the JAX package's all-pairs trajectory."""
     cfg = _cfg(cell_capacity=2).replace(
         interaction_force=4.0,
         attraction_matrix=np.ones((5, 5), np.float32) * 0.9)
-    _, tst = _states(600, 2)
-    with pytest.raises(RuntimeError, match="K4"):
-        P.simulate_dense_adaptive(tst, from_jax_config(cfg), DT, 40, chunk=10,
-                                  ocap=0, max_cap=2)
+    jst, tst = _states(600, 2)
+    msgs = []
+    out, cap, hist = P.simulate_dense_adaptive(
+        tst, from_jax_config(cfg), DT, 40, chunk=10, ocap=0, max_cap=2,
+        verbose=msgs.append)
+    assert cap == 2 and any("falling back to the culled" in m for m in msgs)
+    assert hist == [(10, "allpairs", 0)] * 4
+    ref = jax_simulate(jst, cfg.replace(neighbor="allpairs"), jnp.float32(DT), 40)
+    _close(out.positions, ref.positions, rtol=1e-3, atol=1e-4)
 
 
 def test_run_reference_on_cpu(capsys):
@@ -154,12 +162,21 @@ def test_large_preset_routes_to_dense_adaptive(monkeypatch):
 
 
 def test_small_large_preset_needs_allpairs_kernel():
-    """Below N=32,768 the preset selects the all-pairs kernel (as in the
-    JAX package), which is not ported yet."""
-    st, cfg, dt = P.make_scene("particle_life_large", seed=0, n=1024)
-    assert cfg.neighbor == "allpairs_pallas"
-    with pytest.raises(NotImplementedError, match="K2"):
-        P.simulate(st, cfg, dt, 1)
+    """Below N=32,768 the preset selects the all-pairs kernels (as in the
+    JAX package): at N=1,024 it steps on ``allpairs_pallas`` (K3's plain
+    version here) and matches the JAX package from the same state."""
+    from particle3d_tpu.models import make_scene as jax_make_scene
+
+    st, cfg, dt = P.make_scene("particle_life_large", seed=0, n=1024,
+                               device="cpu")
+    _, jcfg, jdt = jax_make_scene("particle_life_large", n=1024)
+    assert cfg.neighbor == jcfg.neighbor == "allpairs_pallas" and dt == jdt
+    jst = jax_from_numpy(st.positions.numpy(), st.velocities.numpy(),
+                         st.species.numpy())
+    out = P.simulate(st, cfg, dt, 3)
+    ref = jax_simulate(jst, jcfg, jnp.float32(jdt), 3)
+    _close(out.positions, ref.positions)
+    _close(out.velocities, ref.velocities)
 
 
 def test_cpu_main_path_launches_no_kernel():

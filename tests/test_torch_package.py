@@ -80,7 +80,7 @@ def test_from_jax_state_and_metrics_match():
     jst = jax_init_scene(jax.random.PRNGKey(0), 257, cfg)
     jst = jst.replace(velocities=jax.random.normal(jax.random.PRNGKey(1),
                                                    (257, 3)))
-    st = P.from_jax_state(jst)
+    st = P.from_jax_state(jst, device="cpu")
     for name in ("positions", "velocities", "species", "masses", "accel"):
         np.testing.assert_array_equal(getattr(st, name).numpy(),
                                       np.asarray(getattr(jst, name)))
@@ -103,7 +103,7 @@ def test_init_scene_is_seeded_and_in_the_box():
 
 def test_cpu_tensors_take_the_plain_version():
     cfg = from_jax_config(reference_config(world_size=16.0))
-    st = P.make_scene("reference", seed=3, n=400)[0]
+    st = P.make_scene("reference", seed=3, n=400, device="cpu")[0]
     u, v = pair_features(st, cfg, pad_p=PAIR_P)
     ops = TS.prepare_columns(st.positions, u, v, cfg, 8, 16)
     args = (pack_params(cfg), cfg.force_law, True, 8, 16)
@@ -127,8 +127,10 @@ def test_device_cuda_without_cuda_raises(monkeypatch):
 def test_unported_presets_and_bad_configs_raise():
     with pytest.raises(KeyError, match="particle_life_large"):
         P.make_scene("lj_gas")
-    assert P.list_presets() == ["particle_life_1m", "particle_life_large",
-                                "reference"]
+    assert P.list_presets() == [
+        "gravity_nbody", "particle_life_1m", "particle_life_large",
+        "particle_life_large_allpairs", "reference", "reference_walls",
+        "spring_lattice", "verlet_elastic"]
     with pytest.raises(ConfigError):
         P.reference_config(world_size=1.0)
     with pytest.raises(ConfigError):
@@ -146,3 +148,50 @@ def test_pair_coef_keeps_full_float32():
         assert torch.backends.cuda.matmul.allow_tf32 is False
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def test_entry_points_default_to_the_card(monkeypatch):
+    """make_scene, from_numpy and from_jax_state default to device="cuda"
+    and raise without a card instead of running on the host."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    jst = jax_init_scene(jax.random.PRNGKey(0), 8, reference_config())
+    z = np.zeros((8, 3), np.float32)
+    for call in (lambda: P.make_scene("reference", n=8),
+                 lambda: P.from_numpy(z, z, np.zeros(8, np.int32)),
+                 lambda: P.from_jax_state(jst)):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
+    assert P.make_scene("reference", n=8, device="cpu")[0].n == 8
+
+
+@pytest.mark.parametrize("name", ["reference_walls",
+                                  "particle_life_large_allpairs",
+                                  "verlet_elastic", "gravity_nbody",
+                                  "spring_lattice"])
+def test_preset_matches_jax_preset(name):
+    """Geometry, law, integrator, backend and dt of each ported preset equal
+    the JAX preset's, read through from_jax_config; the scene (drawn from
+    torch's generator, not jax.random's) has the JAX scene's shapes and
+    statistics."""
+    from particle3d_tpu.models import make_scene as jax_make_scene
+
+    n = 512
+    jst, jcfg, jdt = jax_make_scene(name, n=n)
+    st, cfg, dt = P.make_scene(name, seed=0, n=n, device="cpu")
+    want = from_jax_config(jcfg)
+    for f in dataclasses.fields(want):
+        got, ref = getattr(cfg, f.name), getattr(want, f.name)
+        if isinstance(ref, (str, bool, int)) or ref is None:
+            assert got == ref, f.name
+        else:
+            np.testing.assert_array_equal(np.asarray(got, np.float32), ref,
+                                          err_msg=f.name)
+    assert dt == jdt and st.n == jst.n == n
+    for field in ("positions", "velocities", "masses"):
+        got, ref = getattr(st, field).numpy(), np.asarray(getattr(jst, field))
+        assert got.shape == ref.shape and got.dtype == ref.dtype
+        assert abs(got.std() - ref.std()) <= 0.1 * ref.std() + 1e-6, field
+        assert abs(got.mean() - ref.mean()) <= 0.1 * ref.std() + 1e-6, field
+    if name == "spring_lattice":  # a deterministic lattice: the same points
+        np.testing.assert_allclose(st.positions.numpy(),
+                                   np.asarray(jst.positions), atol=1e-6)
