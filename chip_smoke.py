@@ -91,8 +91,7 @@ N_RAGGED = 12_345
 N_RAGGED_RECT = 1000
 N_FLAGSHIP = 4096
 N_BLOB = 2000     # particles packed into one cell for the terminal rung
-# H100 SXM peaks (the on-chip-measurement guide): FP32 outside the tensor
-# cores, and device memory
+# H100 SXM peaks: FP32 outside the tensor cores, and device memory
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 
