@@ -57,7 +57,8 @@ The second-to-last line is a JSON record of each kernel: launches on the
 path that drives it (each path runs with every count set to 0 just before
 it), error against the plain version, its time and the plain version's
 at the stated shape, and the bound (the larger of the operations over 67
-TFLOP/s FP32 and the bytes over 3.35 TB/s). The last line is
+TFLOP/s FP32 and the bytes over 3.35 TB/s; operations are counted per
+pair on the unpadded feature width, see `ops_one_sided`). The last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result.
 """
@@ -203,28 +204,43 @@ def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# FP32 operations a kernel does per pair (an FMA counts two, a square root
-# or a division one), for P feature columns. One-sided (K1, K3): deltas 3,
-# d^2 5, gate 1, coefficient 2P, particle-life law 13, sums 6, plus 9 for
-# K3's world-unit wrap. Two-sided (K2, K4), per unordered pair: deltas 3,
-# d^2 5, gates 2, two coefficients 4P, law parts 12, two scales and the row
-# mask 5, both sums 12, j-side products 3, plus 7 for the box-unit wrap
-# and the d^2 restore.
+# FP32 operations the particle-life force function needs per pair, for the
+# P feature columns of U and V before the kernels' zero padding
+# (`feature_width`). An FMA counts two; any other operation (add, multiply,
+# compare, select, min/max, abs, rint, square root, division) one.
+# One-sided (K1, K3), per ordered pair: deltas 3, d^2 5 (a multiply and two
+# FMAs), gate and clamp 3, coefficient U.V 2P, law 12 (sqrt, division,
+# repulsion, the triangle's FMA 2, abs, 1 - x, max, 1/d, coefficient,
+# branch compare and select), sums 6; plus 12 for K3's world-unit wrap (per
+# axis a multiply by 1/w, rint and an FMA). Two-sided (K2, K4), per
+# unordered pair: deltas 3, d^2 5, two gates 2, park 1, law parts 10, two
+# coefficients 4P, two directional scales 4, the i-side sums 6 and the
+# j-side products and sums 6; plus 7 for the box-unit wrap (rint and a
+# subtraction per axis) and the d^2 restore. The padded columns and the
+# padded-row mask are artefacts of the kernels' layout and are not counted.
 def ops_one_sided(p, wrap):
-    return 28 + 2 * p + (9 if wrap else 0)
+    return 29 + 2 * p + (12 if wrap else 0)
 
 
 def ops_two_sided(p, wrap):
-    return 42 + 4 * p + (7 if wrap else 0)
+    return 37 + 4 * p + (7 if wrap else 0)
+
+
+def feature_width(state, cfg):
+    """Columns of U (and V) that coef = U.V needs: 5 for five-species
+    particle life. The kernels see them zero-padded to 8 or 16."""
+    from particle3d_tpu_torch.ops import forces as F
+
+    return F.pair_features(state, cfg)[0].shape[1]
 
 
 def k1_pairs(ds, nsc, cap):
-    """Pairs K1 must evaluate on this layout: each occupied aligned slot
-    against the occupants of its 27 neighbouring supercells."""
+    """Ordered pairs K1 must evaluate on this layout: each occupied aligned
+    slot against the other occupants of its 27 neighbouring supercells."""
     occ = (ds.r2 > 0).reshape(nsc, nsc, nsc, cap).sum(-1).to(torch.float64)
     nbr = sum(torch.roll(occ, (dx, dy, dz), (0, 1, 2))
               for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
-    return float((occ * nbr).sum())
+    return float((occ * nbr).sum() - occ.sum())
 
 
 def _sweep_case(label, state, cfg, reps):
@@ -241,7 +257,8 @@ def _sweep_case(label, state, cfg, reps):
     plain_ms, want = timed_ms(lambda: S.column_sweep_forces_ref(*ops, *args), 2)
     live = (ds.r2 > 0).reshape(nsc * nsc, nsc * cap)  # occupied, aligned
     pick = lambda f: f.permute(0, 2, 1)[live]  # noqa: E731
-    b = bound(k1_pairs(ds, nsc, cap) * ops_one_sided(ops[1].shape[1], False),
+    b = bound(k1_pairs(ds, nsc, cap) * ops_one_sided(feature_width(state, cfg),
+                                                     False),
               nbytes(*ops, got))
     log(f"  {label}: {int(live.sum())} receivers, K1 {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
@@ -457,7 +474,7 @@ def phase_rect():
     ops = A.rect_operands(st.positions[idx], u[idx], st.positions, v, cfg)
     ms, got = timed_ms(lambda: A.rect_sweep(*ops), 10)
     plain_ms, want = timed_ms(lambda: A.rect_sweep_ref(*ops), 2)
-    b = bound(N_SAMPLE * N_LARGE * ops_one_sided(ops[1].shape[1], True),
+    b = bound(N_SAMPLE * N_LARGE * ops_one_sided(u.shape[1], True),
               nbytes(*ops[:5], got))
     log(f"  K3 {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
         f"({b[1]})")
@@ -525,7 +542,7 @@ def phase_tri():
     args = (cfg.force_law, True, A.KERNEL_TILE)
     ms, (oa, ob) = timed_ms(lambda: A.tri_sweep(*ops, *args), 3)
     got = A.tri_forces(oa, ob)
-    b = bound(N_LARGE * (N_LARGE + 1) / 2 * ops_two_sided(ops[1].shape[1], True),
+    b = bound(N_LARGE * (N_LARGE - 1) / 2 * ops_two_sided(u.shape[1], True),
               nbytes(*ops[:5], oa, ob))
     del oa, ob
     plain_ms, (pa, pb) = timed_ms(lambda: A.tri_sweep_ref(*ops, *args), 1,
@@ -608,7 +625,10 @@ def phase_pairlist():
     ms, (oa, ob) = timed_ms(lambda: A.pairlist_sweep(*args), 5)
     got = A.pairlist_forces(oa, ob, wj)
     t = A.KERNEL_TILE
-    b = bound(count * t * t * ops_two_sided(args[1].shape[1], True),
+    u, v = F.pair_features(st, cfg)
+    nt = N_LARGE // t  # one self entry per tile: t (t - 1) / 2 pairs each
+    pairs = (count - nt) * t * t + nt * t * (t - 1) / 2
+    b = bound(pairs * ops_two_sided(u.shape[1], True),
               nbytes(*args[:7], oa, ob))
     plain_ms, (pa, pb) = timed_ms(lambda: A.pairlist_sweep_ref(*args), 1)
     log(f"  K4 {ms:.3f} ms over {count} tile pairs (of "
@@ -617,7 +637,6 @@ def phase_pairlist():
     err = compare(f"K4 N={N_LARGE} vs its plain version", got,
                   A.pairlist_forces(pa, pb, wj))
     del pa, pb
-    u, v = F.pair_features(st, cfg)
     compare(f"K4 N={N_LARGE} (step-0 forces of the culled rung) vs dense K2",
             got, A.pallas_allpairs_forces_tri(st.positions, u, v, cfg))
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
@@ -690,7 +709,7 @@ def phase_allpairs_paths():
     sync()
     _expect(f"particle_life_large N={N_RECT}, 4 steps", kernel_launches(),
             {"allpairs_rect": 4})
-    launches["allpairs_rect"] = 4
+    launches["allpairs_rect"] = kernel_launches()["allpairs_rect"]
     _finite("particle_life_large small", out)
 
     for preset, steps in (("verlet_elastic", 4), ("gravity_nbody", 4)):
@@ -710,7 +729,7 @@ def phase_allpairs_paths():
     sync()
     _expect(f"simulate_culled N={st.n}, {STEPS} steps", kernel_launches(),
             {"allpairs_pairlist": STEPS})
-    launches["allpairs_pairlist"] = STEPS
+    launches["allpairs_pairlist"] = kernel_launches()["allpairs_pairlist"]
     _finite("simulate_culled", out)
     log(f"  stats: {stats}")
     ms, again = timed_ms(lambda: simulate_culled(st, cfg, dt, STEPS)[0], 1,

@@ -30,8 +30,9 @@
 // restore d2 with w^2 and the force sums with w; the two directional scales
 // come from `pair_parts` once per unordered pair.
 //
-// What bounds them. Each pair costs ~45 FP32 operations one-sided (K3) and
-// ~80 for both directions of an unordered pair (K2, K4) against a few bytes
+// What bounds them. Five-species particle life needs ~50 FP32 operations a
+// pair one-sided (K3) and ~64 for both directions of an unordered pair (K2,
+// K4; the counts are in chip_smoke.py's `ops_one_sided`) against a few bytes
 // of operands per particle: all three are bound by FP32 issue, not by device
 // memory (K2 at N = 262,144 does 3.4e10 unordered pairs; its operands are
 // ~20 MB, its j-side partials out_b ~3.2 GB at TILE = 128). The designs

@@ -46,8 +46,8 @@ import torch
 from ..config import SimConfig, f32
 from . import forces as F
 from .compaction import index_add_rows
-from .params import (LAW_IDS, PAIR_P, PF_INV_W, PF_W, directional_scale,
-                     gated_scale, pack_params, pair_parts, r2_gate)
+from .params import (LAW_IDS, PF_INV_W, PF_W, directional_scale, gated_scale,
+                     pack_params, pair_parts, r2_gate)
 
 KERNEL_TILE = 128         # K2/K4 tile rows (csrc TILE)
 RECT_BLOCK = 128          # K3 receivers per block and sources per chunk
@@ -107,7 +107,7 @@ def _kernel_ready(device, p: int, t: int | None = None):
     if p not in KERNEL_WIDTHS:
         raise ValueError(f"feature width {p}: the all-pairs kernels take "
                          f"{KERNEL_WIDTHS} (pad with zero columns, "
-                         f"pad_features)")
+                         f"forces.pad_features)")
     if t is not None and t != KERNEL_TILE:
         raise ValueError(f"the triangular kernels' tile is {KERNEL_TILE} "
                          f"rows, got t={t}")
@@ -145,16 +145,6 @@ def _pad_rows(a, rows: int):
         return a.contiguous()
     pad = a.new_zeros((rows - a.shape[0],) + tuple(a.shape[1:]))
     return torch.cat([a, pad])
-
-
-def pad_features(*feats):
-    """Zero-pad feature matrices [., P] to the next multiple of 8 columns
-    (at least ``PAIR_P``): zero columns leave every U.V unchanged."""
-    p = max(f.shape[1] for f in feats)
-    width = max(PAIR_P, _round_to(p, 8))
-    return tuple(torch.nn.functional.pad(f.to(torch.float32),
-                                         (0, width - f.shape[1])).contiguous()
-                 for f in feats)
 
 
 # -- K3: one-sided rectangular sweep ---------------------------------------
@@ -209,7 +199,7 @@ def rect_sweep_ref(pos, u, src, v, r2row, params, law: str, wrap: bool):
 
 def rect_operands(positions, u, src_positions, src_v, cfg: SimConfig):
     """``rect_sweep``'s arguments for receivers against a source set."""
-    u, src_v = pad_features(u, src_v)
+    u, src_v = F.pad_features(u, src_v)
     src = src_positions.to(torch.float32).contiguous()
     r2row = torch.full((src.shape[0],), float(r2_gate(cfg)),
                        dtype=torch.float32, device=src.device)
@@ -419,7 +409,7 @@ def tri_operands(positions, u, v, cfg: SimConfig, t: int):
         inv_w = params[PF_INV_W]
         pos = pos * float(inv_w)
         r2 = r2 * (inv_w * inv_w)
-    u, v = pad_features(u, v)
+    u, v = F.pad_features(u, v)
     r2row = torch.full((np_,), -1.0, dtype=torch.float32, device=dev)
     r2row[:n] = float(r2)
     imask = torch.zeros((np_,), dtype=torch.float32, device=dev)

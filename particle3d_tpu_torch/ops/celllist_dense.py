@@ -110,7 +110,7 @@ def build_dense(state, cfg: SimConfig, nsc: int, cap: int,
     beyond ``ocap`` gets no slot (callers count it as masked)."""
     n = state.positions.shape[0]
     dev = state.positions.device
-    u, v = F.pair_features(state, cfg, pad_p=PAIR_P)
+    u, v = F.pad_features(*F.pair_features(state, cfg))
     sid = bin_sid(state.positions, cfg, nsc)
     order = torch.argsort(sid, stable=True)
     sid_s = sid[order]

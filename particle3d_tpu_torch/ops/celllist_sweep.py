@@ -304,9 +304,7 @@ def fresh_celllist_forces(positions, u, v, cfg: SimConfig,
             f"cell_grid={nsc} < 3 needs the XLA-style cell list, not ported "
             f"yet (ROADMAP.md queue 1, 'the XLA-style cell list')")
     check_cell_width(cfg, nsc)
-    if u.shape[1] < PAIR_P:
-        u = torch.nn.functional.pad(u, (0, PAIR_P - u.shape[1]))
-        v = torch.nn.functional.pad(v, (0, PAIR_P - v.shape[1]))
+    u, v = F.pad_features(u, v)
 
     pos_d, u_d, post_g, vt_g, r2_g, slot_particle = prepare_columns(
         positions, u, v, cfg, nsc, cap)

@@ -43,8 +43,9 @@ def pair_coef(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return torch.matmul(u, v.transpose(-1, -2))
 
 
-def pair_features(state, cfg: SimConfig, pad_p: int | None = None):
-    """Return (U, V) with coef_ij = dot(U[i], V[j])."""
+def pair_features(state, cfg: SimConfig):
+    """Return (U, V) with coef_ij = dot(U[i], V[j]): ``id_count`` columns
+    for particle life, 2 for gravity, 1 for the other laws."""
     n = state.positions.shape[0]
     dev = state.positions.device
     f32t = torch.float32
@@ -62,11 +63,17 @@ def pair_features(state, cfg: SimConfig, pad_p: int | None = None):
     else:
         u = torch.ones((n, 1), dtype=f32t, device=dev)
         v = torch.ones((n, 1), dtype=f32t, device=dev)
-    if pad_p is not None and u.shape[1] < pad_p:
-        pad = pad_p - u.shape[1]
-        u = torch.nn.functional.pad(u, (0, pad))
-        v = torch.nn.functional.pad(v, (0, pad))
     return u, v
+
+
+def pad_features(*feats):
+    """Zero-pad feature matrices [., P] to the next multiple of 8 columns,
+    the widths the force kernels take (K1: 8; K2-K4: 8 or 16). Zero
+    columns leave every U . V unchanged."""
+    width = -(-max(f.shape[1] for f in feats) // 8) * 8
+    return tuple(torch.nn.functional.pad(f.to(torch.float32),
+                                         (0, width - f.shape[1])).contiguous()
+                 for f in feats)
 
 
 # -- force magnitudes f(d, coef), positive = attraction --------------------

@@ -28,7 +28,7 @@ from particle3d_tpu_torch.state import from_numpy
 from particle3d_tpu_torch.ops import celllist_dense as TD
 from particle3d_tpu_torch.ops import celllist_sweep as TS
 from particle3d_tpu_torch.ops import overflow as TO
-from particle3d_tpu_torch.ops.forces import pair_features
+from particle3d_tpu_torch.ops.forces import pad_features, pair_features
 from particle3d_tpu_torch.ops.params import pack_params
 
 NSC, W = 8, 16.0
@@ -74,7 +74,7 @@ def test_prepare_columns_layout_matches_jax(walled):
     cfg = _cfg(walled=walled)
     jst, tst = _both_states(600, 0)
     ju, jv = jax_pair_features(jst, cfg, pad_p=PAIR_P)
-    tu, tv = pair_features(tst, from_jax_config(cfg), pad_p=PAIR_P)
+    tu, tv = pad_features(*pair_features(tst, from_jax_config(cfg)))
     np.testing.assert_array_equal(_np(tu), np.asarray(ju))
     np.testing.assert_array_equal(_np(tv), np.asarray(jv))
     want = JPC.prepare_columns(jst.positions, ju, jv, cfg, NSC, 32)

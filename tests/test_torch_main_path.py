@@ -119,9 +119,11 @@ def test_adaptive_escalates_and_stays_exact():
 
 
 def test_adaptive_raises_when_ladder_ends():
-    """Masking at max_cap no longer raises: every window falls back to the
+    """Masking at max_cap does not raise: every window falls back to the
     culled rung (K4's plain version here), commits mask-free, and the
-    trajectory matches the JAX package's all-pairs trajectory."""
+    trajectory matches the JAX package's all-pairs trajectory. (The name
+    dates from when the ladder's end raised; it is kept so that the test
+    stays the same test across versions.)"""
     cfg = _cfg(cell_capacity=2).replace(
         interaction_force=4.0,
         attraction_matrix=np.ones((5, 5), np.float32) * 0.9)

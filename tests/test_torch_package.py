@@ -21,8 +21,8 @@ import particle3d_tpu_torch as P
 from particle3d_tpu_torch import __main__ as cli
 from particle3d_tpu_torch.config import ConfigError, from_jax_config
 from particle3d_tpu_torch.ops import celllist_sweep as TS
-from particle3d_tpu_torch.ops.forces import pair_features
-from particle3d_tpu_torch.ops.params import PAIR_P, pack_params
+from particle3d_tpu_torch.ops.forces import pad_features, pair_features
+from particle3d_tpu_torch.ops.params import pack_params
 from particle3d_tpu_torch.utils.metrics import measure_metrics
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -104,7 +104,7 @@ def test_init_scene_is_seeded_and_in_the_box():
 def test_cpu_tensors_take_the_plain_version():
     cfg = from_jax_config(reference_config(world_size=16.0))
     st = P.make_scene("reference", seed=3, n=400, device="cpu")[0]
-    u, v = pair_features(st, cfg, pad_p=PAIR_P)
+    u, v = pad_features(*pair_features(st, cfg))
     ops = TS.prepare_columns(st.positions, u, v, cfg, 8, 16)
     args = (pack_params(cfg), cfg.force_law, True, 8, 16)
     before = TS.KERNEL_LAUNCHES
