@@ -45,7 +45,26 @@ in order; any failure exits non-zero:
      step, a bit-identical rerun);
  11. the capacity ladder's terminal rung: simulate_dense_adaptive at
      N=262,144 with a dense blob, no sidecar and max_cap 64 falls back to
-     the culled rung.
+     the culled rung;
+ 12. K1's halo mode (the slab decomposition's kernel) against its plain
+     version at the particle_life_large geometry (grid 24, cap 32),
+     periodic and walled: on the 1-rank extended operands (576 receiver
+     columns, 624 source columns, plus the dummy when walled), on an
+     interior-split call (528 receiver columns, the pack itself as
+     sources), and at feature width 16 (12 species); halo K1 against
+     non-halo K1 on the same layout; K1 against its plain version at
+     width 16;
+ 13. the 1-rank slab gates: sharded_dense_simulate against simulate_dense
+     (4 steps at N=262,144, periodic and walled: unserved 0, lost 0,
+     max |dpos| / scale < 5e-5), sharded_simulate against simulate on the
+     flagship N=4,096 on allpairs_pallas (2 steps, K3), and
+     sharded_exact_steps against simulate(allpairs_pallas) at N=32,768;
+ 14. full width, stay-sharded on one rank: the JAX bench's N=8,388,608
+     (world 100, grid 68, cap 64, sidecar 128) and N=2,097,152 (world 64,
+     grid 44, cap 64) runs: init_sharded_dense, 10 warm steps, 10 timed
+     steps (masked + limbo 0, lost 0), ms/step, carry bytes, peak device
+     memory, host synchronisations per step, and K1 halo's time per launch
+     at 8M against its plain version.
 
 Tolerance for every force comparison: relative L2 error <= 1e-5 and max
 abs error <= 1e-4 * max|F|. Between a kernel and its plain version only
@@ -53,10 +72,11 @@ the order of the sums differs. A comparison also fails if max|F| exceeds
 1e6: such a scene is dominated by one near-singular pair, and the bounds
 would then pass a wrong kernel.
 
-The second-to-last line is a JSON record of each kernel: launches on the
-path that drives it (each path runs with every count set to 0 just before
-it), error against the plain version, its time and the plain version's
-at the stated shape, and the bound (the larger of the operations over 67
+The second-to-last line is a JSON record of each kernel (K1 and its halo
+mode are separate entries): launches on the path that drives it (each
+path runs with every count set to 0 just before it; K1 halo's is the 8M
+timed window), error against the plain version, its time and the plain
+version's at the stated shape, and the bound (the larger of the operations over 67
 TFLOP/s FP32 and the bytes over 3.35 TB/s; operations are counted per
 pair on the unpadded feature width, see `ops_one_sided`). The last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
@@ -92,6 +112,7 @@ N_RAGGED = 12_345
 N_RAGGED_RECT = 1000
 N_FLAGSHIP = 4096
 N_BLOB = 2000     # particles packed into one cell for the terminal rung
+SLAB_STEPS = 10   # warm and timed windows of the full-width slab runs
 # H100 SXM peaks: FP32 outside the tensor cores, and device memory
 PEAK_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
@@ -177,8 +198,9 @@ def _ptxas_summary(build_log):
                       line)
         if m:
             args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2))]
-            entry = (f"{m.group(1)}<{_LAWS[args[0]]}, wrap={args[1]}"
-                     + (f", P={args[2]}" if len(args) > 2 else "") + ">")
+            extra = {2: "", 3: f", P={args[-1]}",
+                     4: f", halo={args[2]}, P={args[-1]}"}[len(args)]
+            entry = f"{m.group(1)}<{_LAWS[args[0]]}, wrap={args[1]}{extra}>"
         elif entry and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             spills = f"spills {st}/{ld} B"
@@ -234,10 +256,11 @@ def feature_width(state, cfg):
     return F.pair_features(state, cfg)[0].shape[1]
 
 
-def k1_pairs(ds, nsc, cap):
-    """Ordered pairs K1 must evaluate on this layout: each occupied aligned
-    slot against the other occupants of its 27 neighbouring supercells."""
-    occ = (ds.r2 > 0).reshape(nsc, nsc, nsc, cap).sum(-1).to(torch.float64)
+def k1_pairs(r2, nsc, cap):
+    """Ordered pairs K1 must evaluate on a periodic layout with gate ``r2``
+    (one entry per slot): each occupied aligned slot against the other
+    occupants of its 27 neighbouring supercells."""
+    occ = (r2 > 0).reshape(nsc, nsc, nsc, cap).sum(-1).to(torch.float64)
     nbr = sum(torch.roll(occ, (dx, dy, dz), (0, 1, 2))
               for dx in (-1, 0, 1) for dy in (-1, 0, 1) for dz in (-1, 0, 1))
     return float((occ * nbr).sum() - occ.sum())
@@ -257,8 +280,8 @@ def _sweep_case(label, state, cfg, reps):
     plain_ms, want = timed_ms(lambda: S.column_sweep_forces_ref(*ops, *args), 2)
     live = (ds.r2 > 0).reshape(nsc * nsc, nsc * cap)  # occupied, aligned
     pick = lambda f: f.permute(0, 2, 1)[live]  # noqa: E731
-    b = bound(k1_pairs(ds, nsc, cap) * ops_one_sided(feature_width(state, cfg),
-                                                     False),
+    b = bound(k1_pairs(ds.r2, nsc, cap) * ops_one_sided(feature_width(state, cfg),
+                                                        False),
               nbytes(*ops, got))
     log(f"  {label}: {int(live.sum())} receivers, K1 {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
@@ -775,6 +798,284 @@ def phase_terminal_rung():
     _finite("terminal rung", out)
 
 
+def count_syncs(fn):
+    """(fn(), the host synchronisations it made, where they were made),
+    counted by PyTorch's sync debug mode (one warning per synchronising
+    call, attributed to the Python line that made it)."""
+    import collections
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as rec:
+            warnings.simplefilter("always")
+            out = fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    hits = [w for w in rec if "synchroniz" in str(w.message)]
+    where = collections.Counter(f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+                                for w in hits)
+    return out, len(hits), dict(where)
+
+
+def _slab_operands(st, cfg, split=False):
+    """K1 halo operands on a 1-rank mesh from ``st`` (None: the carry is
+    given instead), with the gate r2 of the receivers. ``split``: the
+    interior-split call (receivers without the edge planes, the pack itself
+    as sources); else the single call on the extended planes. Returns
+    (operands, receiver r2 [ncol, cs], pack, pos_d, u_d, geometry)."""
+    from particle3d_tpu_torch.ops.celllist_sweep import bin_sid
+    from particle3d_tpu_torch.ops.params import r2_gate
+    from particle3d_tpu_torch.parallel import build_sharded_dense, make_mesh
+    from particle3d_tpu_torch.parallel import domain_sharded as DS
+
+    mesh = make_mesh(1, device=DEVICE)
+    carry = st if isinstance(st, tuple) else build_sharded_dense(st, cfg, mesh)
+    data, pid = carry[0], carry[1]
+    nsc, cap = cfg.cell_grid, cfg.cell_capacity
+    g = DS._geometry(cfg, mesh, pid.shape[0], nsc, cap, None, None,
+                     carry[3].shape[0])
+    cell_of = torch.arange(g.s_loc, device=DEVICE) // cap
+    aligned = (pid >= 0) & (bin_sid(data[:, :3], cfg, nsc) == cell_of)
+    r2 = torch.where(aligned, float(r2_gate(cfg)), -1.0)
+    pos_d, u_d, pack = DS.slab_pack(data[:, :3], data, r2, cfg, g, 0)
+    r2c = r2.reshape(g.cols_local, g.cs)
+    if split:
+        ops = DS.halo_call_operands(pos_d[nsc:-nsc], u_d[nsc:-nsc], pack, cfg,
+                                    cap)
+        r2c = r2c[nsc:-nsc]
+    else:
+        fl, fr = DS.fix_halos(pack[-nsc:], pack[:nsc], cfg, g, 0)
+        ops = DS.halo_call_operands(pos_d, u_d, torch.cat([fl, pack, fr]),
+                                    cfg, cap)
+    return ops, r2c, pack, pos_d, u_d, g
+
+
+def _halo_case(label, st, cfg, split=False, against_full=False):
+    """K1 halo against its plain version on one slab layout; optionally
+    also against non-halo K1 on the same layout (expected bit-equal)."""
+    from particle3d_tpu_torch.ops import celllist_sweep as S
+    from particle3d_tpu_torch.ops.params import pack_params
+
+    nsc, cap = cfg.cell_grid, cfg.cell_capacity
+    ops, r2c, pack, pos_d, u_d, g = _slab_operands(st, cfg, split)
+    args = (pack_params(cfg), cfg.force_law, bool(cfg.wrap_forces), nsc, cap)
+    got = S.column_sweep_forces(*ops, *args, halo=True)
+    want = S.column_sweep_forces_ref(*ops, *args, halo=True)
+    live = r2c > 0
+    pick = lambda f: f.permute(0, 2, 1)[live]  # noqa: E731
+    log(f"  {label}: {ops[0].shape[0]} receiver columns, "
+        f"{ops[2].shape[0]} source columns, P={ops[1].shape[1]}")
+    compare(label, pick(got), pick(want))
+    if against_full:
+        p = u_d.shape[-1]
+        post_g, vt_g, r2_g = S.ghost_columns(pos_d, pack[..., 3:3 + p],
+                                             pack[..., 3 + p], cfg, cap)
+        full = S.column_sweep_forces(ops[0], ops[1], post_g, vt_g, r2_g, *args)
+        a, b = pick(got), pick(full)
+        same = torch.equal(a, b)
+        log(f"  {label}: halo K1 vs non-halo K1 on the same layout: "
+            f"{'bit-identical' if same else 'max |diff| %.3e' % (a - b).abs().max().item()}")
+        compare(f"{label} vs non-halo K1", a, b)
+
+
+def _wide_cfg(cfg, gen, species=12):
+    """``cfg`` with ``species`` species and a random attraction matrix:
+    feature width 16 after padding."""
+    m = (torch.rand(species, species, generator=gen) * 2 - 1).numpy()
+    return cfg.replace(id_count=species, attraction_matrix=m, colors=None)
+
+
+def phase_halo():
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.state import init_scene
+
+    log(f"[12] K1 halo mode against its plain version (N={N_LARGE}, grid 24, "
+        f"cap 32, one rank)")
+    st, cfg, _ = make_scene("particle_life_large", seed=0, n=N_LARGE,
+                            device=DEVICE)
+    walled = cfg.replace(boundary="clamp", wrap_forces=False)
+    for label, c in (("periodic", cfg), ("walled", walled)):
+        _halo_case(f"halo {label}, extended operands", st, c,
+                   against_full=True)
+        _halo_case(f"halo {label}, interior-split call", st, c, split=True)
+    gen = torch.Generator().manual_seed(9)
+    wide = _wide_cfg(cfg, gen).validate()
+    wst = init_scene(gen, N_LARGE, wide, DEVICE)
+    _halo_case("halo periodic, P=16 (12 species)", wst, wide,
+               against_full=True)
+    _halo_case("halo walled, P=16 interior-split", wst,
+               wide.replace(boundary="clamp", wrap_forces=False), split=True)
+    _sweep_case("K1 (non-halo) P=16 (12 species)", wst, wide, reps=3)
+
+
+def _rel_pos(got, want):
+    scale = max(1.0, want.positions.abs().max().item())
+    return (got.positions - want.positions).abs().max().item() / scale
+
+
+def phase_slab_gates():
+    from particle3d_tpu_torch.engine.step import simulate, simulate_dense
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.parallel import (
+        build_sharded_dense, gather_sharded_dense, make_mesh, shard_state,
+        sharded_dense_simulate, sharded_exact_steps, sharded_simulate)
+
+    log("[13] 1-rank slab gates")
+    mesh = make_mesh(1, device=DEVICE)
+    st, cfg, dt = make_scene("particle_life_large", seed=0, n=N_LARGE,
+                             device=DEVICE)
+    launches = 0
+    for label, c in (("periodic", cfg),
+                     ("walled", cfg.replace(boundary="clamp",
+                                            wrap_forces=False))):
+        sync()
+        reset_kernel_launches()
+        out, (mov, mask, limbo, lost, _) = sharded_dense_simulate(
+            st, c, dt, 4, mesh)
+        sync()
+        k = kernel_launches()
+        ref, (_, mis) = simulate_dense(st, c, dt, 4)
+        rel = _rel_pos(out, ref)
+        log(f"  sharded_dense_simulate {label} vs simulate_dense, 4 steps: "
+            f"max_movers {int(mov)} masked {int(mask)} limbo {int(limbo)} "
+            f"lost {int(lost)} (dense masked {int(mis)}), "
+            f"max|dpos|/scale {rel:.3e}, K1 halo launches {k['celllist_halo']}")
+        if int(mask) or int(limbo) or int(lost) or int(mis) or not rel < 5e-5:
+            raise AssertionError(f"slab gate {label} failed")
+        if k["celllist_halo"] != 4:
+            raise AssertionError(f"K1 halo launched {k['celllist_halo']} "
+                                 f"times in 4 one-rank steps")
+        launches += k["celllist_halo"]
+
+    fst, fcfg, fdt = make_scene("reference", seed=0, n=N_FLAGSHIP,
+                                device=DEVICE)
+    fcfg = fcfg.replace(neighbor="allpairs_pallas")
+    ref = simulate(fst, fcfg, fdt, 2)
+    sync()
+    reset_kernel_launches()
+    out = sharded_simulate(shard_state(fst, mesh), fcfg, fdt, 2, mesh)
+    sync()
+    k = kernel_launches()
+    rel = _rel_pos(out, ref)
+    log(f"  sharded_simulate vs simulate (allpairs_pallas, N={N_FLAGSHIP}, "
+        f"2 steps): max|dpos|/scale {rel:.3e}, K3 launches "
+        f"{k['allpairs_rect']}")
+    if k["allpairs_rect"] != 2 or not rel < 5e-5:
+        raise AssertionError("ring gate failed")
+
+    xst, xcfg, xdt = make_scene("particle_life_large", seed=1, n=N_SMALL,
+                                device=DEVICE)
+    carry = build_sharded_dense(xst, xcfg, mesh)
+    carry, ovf = sharded_exact_steps(carry, xcfg, xdt, 2, mesh, rcap=N_SMALL)
+    out = gather_sharded_dense(carry, xst, mesh)
+    ref = simulate(xst, xcfg.replace(neighbor="allpairs_pallas"), xdt, 2)
+    rel = _rel_pos(out, ref)
+    log(f"  sharded_exact_steps (rcap {N_SMALL}) vs simulate(allpairs_pallas), "
+        f"2 steps: overflow {int(ovf)}, max|dpos|/scale {rel:.3e}")
+    if int(ovf) or not rel < 5e-5:
+        raise AssertionError("exact-rung gate failed")
+    return launches
+
+
+def _slab_run(name, kernel_row=False):
+    """One SLAB_RUNS configuration, stay-sharded on one rank: init, a warm
+    window and a timed window of SLAB_STEPS steps; returns the K1 halo
+    kernel record at its shape when ``kernel_row``."""
+    from particle3d_tpu_torch.models.presets import slab_run
+    from particle3d_tpu_torch.ops import celllist_sweep as S
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.ops.params import pack_params
+    from particle3d_tpu_torch.parallel import (init_sharded_dense, make_mesh,
+                                               sharded_dense_steps)
+
+    n, cfg, dt, kw = slab_run(name)
+    mesh = make_mesh(1, device=DEVICE)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    carry = init_sharded_dense(5, n, cfg, mesh, nsc=kw["nsc"], cap=kw["cap"],
+                               migcap=kw["migcap"])
+    sync()
+    t_init = time.perf_counter() - t0
+    live = int((carry[1] >= 0).sum()) + int((carry[3] >= 0).sum())
+    carry_bytes = nbytes(*carry[:4])
+    log(f"  {name}: N={n}, grid {kw['nsc']}, cap {kw['cap']}, ocap "
+        f"{kw['ocap']}: init {t_init:.2f} s, {live} rows live (lost "
+        f"{int(carry[4])}), carry {carry_bytes / 1e9:.3f} GB")
+    if live + int(carry[4]) != n or int(carry[4]):
+        raise AssertionError(f"{name}: init placed {live} of {n} rows")
+    steps = dict(kw, n=n)
+    t0 = time.perf_counter()
+    carry, d = sharded_dense_steps(carry, cfg, dt, SLAB_STEPS, mesh, **steps)
+    sync()
+    warm_s = time.perf_counter() - t0
+    # one step from the warm carry, counted and thrown away (the step
+    # functions never write their inputs): the timed window starts from
+    # the same carry, so the run is the JAX bench's 20 steps
+    _, syncs, where = count_syncs(
+        lambda: sharded_dense_steps(carry, cfg, dt, 1, mesh, **steps))
+    sync()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    carry, (mov, mask, limbo, lost, _) = sharded_dense_steps(
+        carry, cfg, dt, SLAB_STEPS, mesh, **steps)
+    sync()
+    ms = (time.perf_counter() - t0) / SLAB_STEPS * 1e3
+    halo_launches = kernel_launches()["celllist_halo"]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  {name}: warm window {warm_s / SLAB_STEPS * 1e3:.1f} ms/step; timed "
+        f"{SLAB_STEPS} steps {ms:.3f} ms/step (host clock, synchronised), "
+        f"max_movers {int(mov)} masked {int(mask)} limbo {int(limbo)} lost "
+        f"{int(lost)}; K1 halo launches {halo_launches}; peak device memory "
+        f"{peak / 1e9:.3f} GB; host syncs in one step {syncs} {where}")
+    trouble = int(mask) + int(limbo) + int(d[1]) + int(d[2])
+    if trouble or int(lost) or int(d[3]) or int(carry[4]):
+        raise AssertionError(f"{name}: masked/limbo {trouble}, lost "
+                             f"{int(lost)}")
+    if halo_launches != SLAB_STEPS:
+        raise AssertionError(f"{name}: K1 halo launched {halo_launches} "
+                             f"times in {SLAB_STEPS} steps")
+    occ = carry[1] >= 0
+    if not bool(torch.isfinite(carry[0][occ][:, :6]).all()):
+        raise AssertionError(f"{name}: non-finite rows")
+    rec = {"ms_per_step": ms, "launches": halo_launches, "syncs": syncs}
+    ops, r2c, *_ = _slab_operands(carry, cfg)
+    args = (pack_params(cfg), cfg.force_law, True, kw["nsc"], kw["cap"])
+    k_ms, got = timed_ms(lambda: S.column_sweep_forces(*ops, *args, halo=True),
+                         3)
+    log(f"  {name}: K1 halo {k_ms:.3f} ms per launch ({ops[0].shape[0]} "
+        f"receiver columns, CUDA events)")
+    if kernel_row:
+        plain_ms, want = timed_ms(
+            lambda: S.column_sweep_forces_ref(*ops, *args, halo=True), 1,
+            warm=False)
+        live = r2c > 0
+        pick = lambda f: f.permute(0, 2, 1)[live]  # noqa: E731
+        err = compare(f"K1 halo at {name}", pick(got), pick(want))
+        del want
+        # particle life's unpadded features: one column per species
+        b = bound(k1_pairs(r2c.reshape(-1), kw["nsc"], kw["cap"])
+                  * ops_one_sided(int(cfg.id_count), False), nbytes(*ops, got))
+        log(f"  K1 halo {k_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b[0]:.4f} ms ({b[1]})")
+        rec.update(max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound=b,
+                   shape=f"N={n}, grid {kw['nsc']}, cap {kw['cap']}, one rank "
+                         f"({ops[0].shape[0]} receiver columns)")
+    del carry, ops, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_slab_full():
+    log(f"[14] full width, stay-sharded on one rank ({SLAB_STEPS} warm + "
+        f"{SLAB_STEPS} timed steps)")
+    rec8 = _slab_run("slab_8m", kernel_row=True)
+    _slab_run("slab_2m")
+    return rec8
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -795,10 +1096,17 @@ def main():
     k4 = phase_pairlist()
     launches = phase_allpairs_paths()
     phase_terminal_rung()
+    phase_halo()
+    phase_slab_gates()
+    k1h = phase_slab_full()
     log(smi)  # the card and its power limit, beside the numbers below
     src = "particle3d_tpu_torch/csrc/allpairs_sweep.cu"
     table = [("celllist_sweep", "particle3d_tpu_torch/csrc/celllist_sweep.cu",
               "particle3d_tpu/ops/pallas_celllist.py:50", k1),
+             ("celllist_sweep_halo",
+              "particle3d_tpu_torch/csrc/celllist_sweep.cu",
+              "particle3d_tpu/ops/pallas_celllist.py:50 (_call halo=True, :303)",
+              k1h),
              ("allpairs_tri", src, "particle3d_tpu/ops/pallas_allpairs.py:369",
               {**k2, "launches": launches["allpairs_tri"]}),
              ("allpairs_rect", src, "particle3d_tpu/ops/pallas_allpairs.py:117",

@@ -9,6 +9,9 @@ and the column-sweep kernel K1, ``csrc/celllist_sweep.cu``, driven by
 kernels K2, K3 and K4 (``csrc/allpairs_sweep.cu``): ``allpairs_pallas``,
 ``allpairs_culled`` and the capacity ladder's culled rung
 ``simulate_culled``; ``python -m particle3d_tpu_torch run`` drives them.
+``parallel`` holds the slab domain decomposition on ``torch.distributed``
+(K1's halo mode) and the ring all-pairs; ``python -m particle3d_tpu_torch
+slab`` runs it stay-sharded.
 """
 
 from .config import SimConfig, reference_config, from_jax_config

@@ -3,12 +3,20 @@
     python -m particle3d_tpu_torch run --preset particle_life_large --steps 48
     python -m particle3d_tpu_torch run --preset reference --steps 5 --device cpu
     python -m particle3d_tpu_torch presets
+    python -m particle3d_tpu_torch slab --run slab_8m --steps 10
+    torchrun --nproc_per_node=4 -m particle3d_tpu_torch slab --run slab_8m
 
 ``run`` prints one JSON line: the JAX package's fields plus the number of
 force-kernel launches (``kernel_launches``, with one count per kernel in
 ``kernel_launches_by_kernel``) and, for the cell-list presets, the capacity
 ladder's history. ``--device cuda`` (the default) never falls back to the
 CPU.
+
+``slab`` runs a ``models.presets.SLAB_RUNS`` configuration on the slab
+decomposition, stay-sharded: one rank by default, or every rank of a
+torchrun launch (one process per card, NCCL; several cards are
+unverified). After one untimed step, rank 0 prints one JSON line with the
+timed window's ms/step and diagnostics.
 """
 
 from __future__ import annotations
@@ -71,6 +79,39 @@ def _cmd_run(a):
     return rec
 
 
+def _cmd_slab(a):
+    from .models.presets import slab_run
+    from .parallel import (init_sharded_dense, initialize_distributed,
+                           make_mesh, sharded_dense_steps)
+
+    device = torch.device(a.device)
+    initialize_distributed(backend="nccl" if device.type == "cuda" else "gloo")
+    mesh = make_mesh(device=a.device)
+    n, cfg, dt, kw = slab_run(a.run)
+    carry = init_sharded_dense(a.seed, n, cfg, mesh, nsc=kw["nsc"],
+                               cap=kw["cap"], migcap=kw["migcap"])
+    # one untimed step, thrown away (the step functions never write their
+    # inputs): it builds and loads the kernel before the clock starts
+    sharded_dense_steps(carry, cfg, dt, 1, mesh, n=n, **kw)
+    _sync(mesh.device)
+    t0 = time.perf_counter()
+    carry, (mov, mask, limbo, lost, shipped) = sharded_dense_steps(
+        carry, cfg, dt, a.steps, mesh, n=n, **kw)
+    _sync(mesh.device)
+    el = time.perf_counter() - t0
+    rec = {"run": a.run, "n": n, "steps": a.steps, "ranks": mesh.size,
+           "device": str(mesh.device), "wall_s": round(el, 3),
+           "ms_per_step": round(el / a.steps * 1e3, 3),
+           "max_movers": int(mov), "max_masked": int(mask),
+           "max_limbo": int(limbo), "lost": int(lost),
+           "shipped": int(shipped)}
+    if mesh.rank == 0:
+        print(json.dumps(rec))
+    if mesh.size > 1:
+        torch.distributed.destroy_process_group()
+    return rec
+
+
 def _cmd_presets(a):
     from .models import list_presets
 
@@ -90,6 +131,14 @@ def main(argv=None):
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     r.set_defaults(fn=_cmd_run)
+
+    sl = sub.add_parser("slab", help="stay-sharded slab run of a SLAB_RUNS "
+                                     "configuration (torchrun for several ranks)")
+    sl.add_argument("--run", default="slab_2m")
+    sl.add_argument("--steps", type=int, default=10)
+    sl.add_argument("--seed", type=int, default=0)
+    sl.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    sl.set_defaults(fn=_cmd_slab)
 
     ls = sub.add_parser("presets", help="list ported scene presets")
     ls.set_defaults(fn=_cmd_presets)

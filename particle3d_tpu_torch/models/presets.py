@@ -147,3 +147,28 @@ def make_scene(name: str, seed: int = 0, n: int | None = None,
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return PRESETS[name](gen, n, device)
+
+
+# The JAX bench's one-chip runs of the slab decomposition (bench.py, "slab
+# stay-sharded" at N=2M and N=8M): particle life at 8 particles per unit^3,
+# default 5-species matrix, dt 1/60, on a 1-rank mesh. Geometry and static
+# capacities as the bench measured them: (44, 64) without the sidecar at
+# 2M, tail-covering (68, 64) with a 128-row sidecar at 8M; mcap ~2.25x the
+# movers per step, migcap 4,096 (one rank has no slab crossers).
+SLAB_RUNS = {
+    "slab_2m": dict(n=2_097_152, world_size=64.0, nsc=44, cap=64,
+                    mcap=114_688, migcap=4096, ocap=0),
+    "slab_8m": dict(n=8 * 1024 * 1024, world_size=100.0, nsc=68, cap=64,
+                    mcap=419_840, migcap=4096, ocap=128),
+}
+
+
+def slab_run(name: str):
+    """-> (n, cfg, dt, kw) of a ``SLAB_RUNS`` entry: ``kw`` holds the
+    geometry and capacities that ``init_sharded_dense`` (nsc, cap, migcap)
+    and ``sharded_dense_steps`` (all of them) take."""
+    r = dict(SLAB_RUNS[name])
+    n = r.pop("n")
+    cfg = SimConfig(world_size=r.pop("world_size"), neighbor="celllist_pallas",
+                    cell_grid=r["nsc"], cell_capacity=r["cap"]).validate()
+    return n, cfg, 1.0 / 60.0, r

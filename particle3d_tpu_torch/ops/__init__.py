@@ -6,6 +6,7 @@ def kernel_launches() -> dict[str, int]:
     from . import allpairs_sweep, celllist_sweep
 
     return {"celllist_sweep": celllist_sweep.KERNEL_LAUNCHES,
+            "celllist_halo": celllist_sweep.HALO_LAUNCHES,
             **allpairs_sweep.KERNEL_LAUNCHES}
 
 
@@ -13,5 +14,6 @@ def reset_kernel_launches():
     from . import allpairs_sweep, celllist_sweep
 
     celllist_sweep.KERNEL_LAUNCHES = 0
+    celllist_sweep.HALO_LAUNCHES = 0
     for name in allpairs_sweep.KERNEL_LAUNCHES:
         allpairs_sweep.KERNEL_LAUNCHES[name] = 0

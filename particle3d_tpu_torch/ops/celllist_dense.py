@@ -35,18 +35,16 @@ from . import forces as F
 from .celllist_sweep import (bin_sid, column_sweep_forces, fold_to_cells,
                              ghost_columns)
 from .compaction import masked_indices
-from .params import PAIR_P, pack_params, r2_gate
+from .params import pack_params, r2_gate
 
 # Default overflow-sidecar capacity (see ops/overflow.py); cfg.overflow_capacity
 # overrides it.
 OCAP = 512
 
-# data rows [pos(3) | vel(3) | acc(3)]; feat rows [U(P) | V(P)]
+# data rows [pos(3) | vel(3) | acc(3)]; feat rows [U(P) | V(P)], P = 8 or 16
 _POS = slice(0, 3)
 _VEL = slice(3, 6)
 _ACC = slice(6, 9)
-_FU = slice(0, PAIR_P)
-_FV = slice(PAIR_P, 2 * PAIR_P)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -78,11 +76,11 @@ class DenseSim:
 
     @property
     def u(self):
-        return self.feat[:, _FU]
+        return self.feat[:, :self.feat.shape[1] // 2]
 
     @property
     def v(self):
-        return self.feat[:, _FV]
+        return self.feat[:, self.feat.shape[1] // 2:]
 
     def replace(self, **kw) -> "DenseSim":
         return dataclasses.replace(self, **kw)
@@ -95,8 +93,12 @@ def default_mover_capacity(n: int) -> int:
 
 def _set_drop(a: torch.Tensor, idx: torch.Tensor, vals) -> torch.Tensor:
     """``a.at[idx].set(vals, mode="drop")`` for idx in [0, len(a)]: index
-    len(a) lands on an extra row that is sliced off."""
+    len(a) lands on an extra row that is sliced off. A Python scalar value
+    is made on the device first: assigning it directly copies it from the
+    host, which synchronises with the card."""
     buf = torch.cat([a, a[:1]])
+    if not isinstance(vals, torch.Tensor):
+        vals = torch.full((), vals, dtype=a.dtype, device=a.device)
     buf[idx] = vals
     return buf[:-1]
 
@@ -188,10 +190,11 @@ def sweep_operands(pos_flat, ds: DenseSim, cfg: SimConfig, nsc: int, cap: int):
     if cfg.wrap_forces:
         # fold wrap-crossers back next to their cell (column-level images)
         pos_r = fold_to_cells(pos_r, cfg.world_size, nsc, cap)
+    p = ds.u.shape[1]
     post_g, vt_g, r2_g = ghost_columns(
-        pos_r, ds.v.reshape(ncol, cs, PAIR_P), ds.r2.reshape(ncol, cs), cfg, cap)
+        pos_r, ds.v.reshape(ncol, cs, p), ds.r2.reshape(ncol, cs), cfg, cap)
     pos_d = pos_r.permute(0, 2, 1).contiguous()
-    u_d = ds.u.reshape(ncol, cs, PAIR_P).permute(0, 2, 1).contiguous()
+    u_d = ds.u.reshape(ncol, cs, p).permute(0, 2, 1).contiguous()
     return pos_d, u_d, post_g, vt_g, r2_g
 
 

@@ -9,16 +9,22 @@ z-minor. Each column carries one ghost supercell at each z end (shifted
 copies for periodic boxes, masked padding otherwise), so every receiver
 supercell's 3-supercell source window is one contiguous slice of each of
 its 9 (x, y)-neighbour columns. Operand shapes are those of the JAX
-package's ``_call`` (slot-minor ``[NCOL, 3|P|1, CS|G]``).
+package's ``_call`` (slot-minor ``[NCOL, 3|P|1, CS|G]``, P = 8 or 16).
+
+``halo=True`` is the slab decomposition's mode (``parallel.domain_sharded``):
+the receivers are whole x-planes of one slab and the sources carry one
+halo plane at each x end, so the x neighbour is a local plane offset that
+never wraps; y wraps (or hits the walled dummy column) as without the halo.
 
 ``column_sweep_forces`` launches the hand-written CUDA kernel
 (``csrc/celllist_sweep.cu``) for CUDA tensors and computes the plain
 version ``column_sweep_forces_ref`` for CPU tensors. The CUDA path has no
-fallback: it launches or raises. ``KERNEL_LAUNCHES`` counts launches.
+fallback: it launches or raises. ``KERNEL_LAUNCHES`` counts the launches
+without the halo, ``HALO_LAUNCHES`` those in halo mode.
 
-Not ported here: ``halo=True`` (the slab decomposition's mode), the
-cadenced ``CellLayout`` half, and the Mosaic VMEM/alignment model
-(``_pick_zr``, ``kernel_vmem_bytes``, ``max_feasible_cap``).
+Not ported here: the cadenced ``CellLayout`` half, and the Mosaic
+VMEM/alignment model (``_pick_zr``, ``kernel_vmem_bytes``,
+``max_feasible_cap``).
 """
 
 from __future__ import annotations
@@ -30,12 +36,14 @@ import torch
 
 from ..config import SimConfig, f32
 from . import forces as F
-from .params import LAW_IDS, PAIR_P, PF_W, gated_scale, pack_params, r2_gate
+from .params import LAW_IDS, PF_W, gated_scale, pack_params, r2_gate
 
 # (dx, dy) neighbour order, as the JAX package's _OFFSETS9 and the kernel
 OFFSETS9 = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
 
 KERNEL_LAUNCHES = 0
+HALO_LAUNCHES = 0
+KERNEL_WIDTHS = (8, 16)  # feature widths the kernel is built for
 
 _LIB = ("celllist_sweep", ("celllist_sweep.cu", "pair_law.cuh"))
 # largest temporary of the plain version, in elements (blocks of columns)
@@ -47,7 +55,7 @@ def _library():
 
     lib = load_library(*_LIB)
     fn = lib.p3t_column_sweep
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
@@ -60,11 +68,24 @@ def build_kernel():
     return build_log(*_LIB)
 
 
-def _check_operands(pos_d, u_d, post_g, vt_g, r2_g, wrap, nsc, cap):
-    ncol, cs, g = nsc * nsc, nsc * cap, (nsc + 2) * cap
-    nsrc = ncol if wrap else ncol + 1
-    want = {"pos_d": (pos_d, (ncol, 3, cs)), "u_d": (u_d, (ncol, PAIR_P, cs)),
-            "post_g": (post_g, (nsrc, 3, g)), "vt_g": (vt_g, (nsrc, PAIR_P, g)),
+def _check_operands(pos_d, u_d, post_g, vt_g, r2_g, wrap, nsc, cap, halo):
+    ncol, cs, g = pos_d.shape[0], nsc * cap, (nsc + 2) * cap
+    p = u_d.shape[1] if u_d.dim() == 3 else -1
+    if p not in KERNEL_WIDTHS:
+        raise ValueError(f"u_d: feature width {p}, K1 takes {KERNEL_WIDTHS} "
+                         f"(pad with zero columns, forces.pad_features)")
+    if halo:
+        if ncol < nsc or ncol % nsc:
+            raise ValueError(f"halo receivers: {ncol} columns is not a whole "
+                             f"number of planes of {nsc}")
+        nsrc = ncol + 2 * nsc
+    else:
+        ncol = nsc * nsc
+        nsrc = ncol
+    if not wrap:
+        nsrc += 1  # the masked dummy column
+    want = {"pos_d": (pos_d, (ncol, 3, cs)), "u_d": (u_d, (ncol, p, cs)),
+            "post_g": (post_g, (nsrc, 3, g)), "vt_g": (vt_g, (nsrc, p, g)),
             "r2_g": (r2_g, (nsrc, 1, g))}
     for name, (t, shape) in want.items():
         if t.device != pos_d.device:
@@ -78,73 +99,87 @@ def _check_operands(pos_d, u_d, post_g, vt_g, r2_g, wrap, nsc, cap):
         raise ValueError(f"the column sweep needs nsc >= 3 (got {nsc}): a "
                          f"3-supercell window must never hold a supercell "
                          f"and its own wrap-ghost copy")
+    return ncol, p
 
 
 def column_sweep_forces(pos_d, u_d, post_g, vt_g, r2_g, params, law: str,
                         wrap: bool, nsc: int, cap: int, halo: bool = False):
-    """K1: f32[NCOL, 3, CS] forces on every slot (garbage on empty slots).
+    """K1: f32[NCOL, 3, CS] forces on every receiver slot (garbage on empty
+    slots). ``halo=False``: NCOL = nsc^2, the whole grid. ``halo=True``:
+    NCOL is any whole number of x-planes and the sources carry NCOL + 2*nsc
+    columns (module docstring).
 
     ``params`` is the host-side f32[14] vector of ``pack_params``."""
-    global KERNEL_LAUNCHES
-    if halo:
-        raise NotImplementedError(
-            "column sweep halo=True (slab decomposition) is not ported yet: "
-            "ROADMAP.md queue 1, 'K1 halo mode and scale-out'")
-    _check_operands(pos_d, u_d, post_g, vt_g, r2_g, wrap, nsc, cap)
+    global KERNEL_LAUNCHES, HALO_LAUNCHES
+    ncol, p = _check_operands(pos_d, u_d, post_g, vt_g, r2_g, wrap, nsc, cap,
+                              halo)
     if pos_d.device.type == "cpu":
         return column_sweep_forces_ref(pos_d, u_d, post_g, vt_g, r2_g, params,
-                                       law, wrap, nsc, cap)
+                                       law, wrap, nsc, cap, halo=halo)
     if pos_d.device.type != "cuda":
         raise ValueError(f"no column-sweep kernel for device {pos_d.device}")
     pf = np.ascontiguousarray(np.asarray(params, np.float32))
     if pf.shape != (14,):
         raise ValueError(f"params must be f32[14], got {pf.shape}")
     fn = _library()
-    out = torch.empty((nsc * nsc, 3, nsc * cap), dtype=torch.float32,
+    out = torch.empty((ncol, 3, nsc * cap), dtype=torch.float32,
                       device=pos_d.device)
     with torch.cuda.device(pos_d.device):
         stream = torch.cuda.current_stream(pos_d.device).cuda_stream
         err = fn(pos_d.data_ptr(), u_d.data_ptr(), post_g.data_ptr(),
                  vt_g.data_ptr(), r2_g.data_ptr(),
                  pf.ctypes.data_as(ctypes.c_void_p), out.data_ptr(),
-                 LAW_IDS[law], int(bool(wrap)), nsc, cap, stream)
+                 LAW_IDS[law], int(bool(wrap)), int(bool(halo)), nsc, cap,
+                 ncol, p, stream)
     if err != 0:
         raise RuntimeError(f"column-sweep kernel launch failed: CUDA error "
-                           f"{err} (nsc={nsc}, cap={cap})")
-    KERNEL_LAUNCHES += 1
+                           f"{err} (nsc={nsc}, cap={cap}, ncol={ncol}, "
+                           f"halo={halo})")
+    if halo:
+        HALO_LAUNCHES += 1
+    else:
+        KERNEL_LAUNCHES += 1
     return out
 
 
-def _neighbour_columns(nsc: int, wrap: bool, dummy: int, w, device):
-    """[NCOL, 9] source column per neighbour and its x / y image shifts."""
-    c = torch.arange(nsc * nsc, device=device)
+def _neighbour_columns(ncol: int, nsc: int, wrap: bool, halo: bool,
+                       dummy: int, w, device):
+    """[NCOL, 9] source column per neighbour and its x / y image shifts.
+    In halo mode the x neighbour is the local source plane (the sources
+    lead with one halo plane) and never wraps or shifts."""
+    c = torch.arange(ncol, device=device)
     dx = torch.tensor([o[0] for o in OFFSETS9], device=device)
     dy = torch.tensor([o[1] for o in OFFSETS9], device=device)
-    nx = (c // nsc)[:, None] + dx[None]
+    nx = (c // nsc + (1 if halo else 0))[:, None] + dx[None]
     ny = (c % nsc)[:, None] + dy[None]
-    if wrap:
-        def shift(k):
-            z = torch.zeros(k.shape, dtype=torch.float32, device=device)
-            return torch.where(k < 0, z - w, torch.where(k >= nsc, z + w, z))
-
-        return (nx % nsc) * nsc + ny % nsc, shift(nx), shift(ny)
-    ok = (nx >= 0) & (nx < nsc) & (ny >= 0) & (ny < nsc)
     zero = torch.zeros(nx.shape, dtype=torch.float32, device=device)
+
+    def shift(k):
+        return torch.where(k < 0, zero - w, torch.where(k >= nsc, zero + w, zero))
+
+    if wrap:
+        if halo:
+            return nx * nsc + ny % nsc, zero, shift(ny)
+        return (nx % nsc) * nsc + ny % nsc, shift(nx), shift(ny)
+    ok = (ny >= 0) & (ny < nsc)
+    if not halo:
+        ok = ok & (nx >= 0) & (nx < nsc)
     return torch.where(ok, nx * nsc + ny, dummy), zero, zero
 
 
 def column_sweep_forces_ref(pos_d, u_d, post_g, vt_g, r2_g, params, law: str,
-                            wrap: bool, nsc: int, cap: int):
+                            wrap: bool, nsc: int, cap: int, halo: bool = False):
     """Plain torch K1 with the same operands and the same 3-supercell
     windows, blocked over columns so that no temporary exceeds
     ``_REF_MAX_ELEMS`` elements (one unblocked gather at 262k would take
     ~18 GB). Walled boxes read the masked dummy column, as the TPU kernel
     does."""
-    ncol, cs = nsc * nsc, nsc * cap
+    ncol, cs = pos_d.shape[0], nsc * cap
     p = u_d.shape[1]
     dev = pos_d.device
     w = float(params[PF_W])
-    nbr, shx, shy = _neighbour_columns(nsc, wrap, post_g.shape[0] - 1, w, dev)
+    nbr, shx, shy = _neighbour_columns(ncol, nsc, wrap, halo,
+                                       post_g.shape[0] - 1, w, dev)
     # ghosted rows of receiver supercell zc's window: [zc*cap, (zc+3)*cap)
     win = (torch.arange(nsc, device=dev)[:, None] * cap
            + torch.arange(3 * cap, device=dev)[None])
@@ -183,17 +218,18 @@ def column_sweep_forces_ref(pos_d, u_d, post_g, vt_g, r2_g, params, law: str,
     return out
 
 
-def fold_to_cells(pos_r, w, nsc: int, cap: int):
+def fold_to_cells(pos_r, w, nsc: int, cap: int, col0_x: int = 0):
     """Fold each slot's coordinates [NCOL, CS, 3] into the periodic image
     nearest its cell centre, so a wrap-crosser sits next to its cell again
-    (unmoved occupants fold by exactly 0)."""
+    (unmoved occupants fold by exactly 0). ``col0_x`` is the global x-plane
+    of the first column: a slab's columns are a window of the grid."""
     ncol, cs = pos_r.shape[0], pos_r.shape[1]
     dev = pos_r.device
     w = f32(w)
     cellw = w / np.float32(nsc)
     half_w = float(np.float32(0.5) * w)
     col = torch.arange(ncol, device=dev)
-    ctr_x = ((col // nsc).to(torch.float32) + 0.5) * float(cellw) - half_w
+    ctr_x = ((col // nsc + col0_x).to(torch.float32) + 0.5) * float(cellw) - half_w
     ctr_y = ((col % nsc).to(torch.float32) + 0.5) * float(cellw) - half_w
     zc = torch.arange(cs, device=dev) // cap
     ctr_z = (zc.to(torch.float32) + 0.5) * float(cellw) - half_w
@@ -211,8 +247,10 @@ def ghost_columns(pos_r, v_r, r2_r, cfg: SimConfig, cap: int):
     ncol, cs = pos_r.shape[0], pos_r.shape[1]
     dev = pos_r.device
     if cfg.wrap_forces:
-        zs = torch.zeros(3, dtype=torch.float32, device=dev)
-        zs[2] = float(f32(cfg.world_size))
+        # [0, 0, w] made on the device: a host value assigned into it would
+        # be a blocking copy
+        zs = torch.nn.functional.pad(
+            torch.full((1,), float(f32(cfg.world_size)), device=dev), (2, 0))
         pos_g = torch.cat([pos_r[:, cs - cap:] - zs, pos_r, pos_r[:, :cap] + zs], 1)
         v_g = torch.cat([v_r[:, cs - cap:], v_r, v_r[:, :cap]], 1)
         r2_gh = torch.cat([r2_r[:, cs - cap:], r2_r, r2_r[:, :cap]], 1)

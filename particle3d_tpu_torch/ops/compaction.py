@@ -3,9 +3,11 @@
 
 ``masked_indices`` has exactly the semantics of ``jnp.nonzero(mask,
 size=size, fill_value=fill_value)[0]``: ascending indices of the True
-entries, truncated or padded to ``size``. The JAX package's MXU rank scan
-works around a serial cumsum on the TPU and is not carried over.
-``torch.nonzero`` synchronises with the device to learn the count.
+entries, truncated or padded to ``size``. It ranks the entries with a
+cumulative sum and scatters them, so its output shape is static and it
+never synchronises with the device (``torch.nonzero`` would, to learn the
+count). The JAX package's MXU rank scan works around a serial cumsum on
+the TPU and is not carried over.
 """
 
 from __future__ import annotations
@@ -18,12 +20,14 @@ def masked_indices(mask: torch.Tensor, size: int,
     s = mask.shape[0]
     if fill_value is None:
         fill_value = s
-    idx = torch.nonzero(mask).flatten()[:size]
-    pad = size - idx.shape[0]
-    if pad:
-        idx = torch.cat([idx, torch.full((pad,), fill_value, dtype=idx.dtype,
-                                         device=idx.device)])
-    return idx
+    rank = torch.cumsum(mask.to(torch.int64), 0) - 1
+    # the rank of each True entry is its output slot; everything else (and
+    # entries past ``size``) lands on one scratch slot that is sliced off
+    dst = torch.where(mask & (rank < size), rank, size)
+    out = torch.full((size + 1,), fill_value, dtype=torch.int64,
+                     device=mask.device)
+    out[dst] = torch.arange(s, device=mask.device)
+    return out[:size]
 
 
 def index_add_rows(target: torch.Tensor, index: torch.Tensor,

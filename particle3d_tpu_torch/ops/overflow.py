@@ -13,8 +13,10 @@ pair is computed exactly once across {grid kernel, these sweeps}:
   * aligned <- mis: reverse forces added onto the gathered slots (the
     laws are directional, so this is f(j <- i), not -f(i <- j)).
 
-Needs nsc >= 3 (periodic neighbour cells must be distinct). The
-``sidecar_sweeps`` / ``rect_forces`` path for smaller grids is not ported.
+``slab_neighborhood_sweeps`` is the slab decomposition's form, per rank
+over the halo-extended planes. Needs nsc >= 3 (periodic neighbour cells
+must be distinct). The ``sidecar_sweeps`` / ``rect_forces`` path for
+smaller grids is not ported.
 """
 
 from __future__ import annotations
@@ -118,3 +120,125 @@ def neighborhood_apply(f, positions, u_all, v_all, src_ok, mis, cfg: SimConfig,
         positions, u_all, v_all, src_ok,
         positions[msafe], u_all[msafe], v_all[msafe], mvalid, cfg, nsc, cap)
     return index_add_rows(f + f_from, msafe, f_mis, mvalid)
+
+
+def slab_neighborhood_sweeps(ext, u_all, mpos, mu, mv, mvalid, cfg: SimConfig,
+                             nsc: int, planes_local: int, cap: int, me: int,
+                             self_ring: bool = False):
+    """The slab decomposition's sidecar (port of the JAX function of this
+    name): ``neighborhood_sweeps`` for one rank, with sources read from the
+    halo-extended plane pack the force kernel already exchanged.
+
+    ``ext`` f32[(planes_local + 2) * nsc, cs, 3 + P + 1] holds the source
+    planes [pos | V | r2] with one halo plane at each x end (wraparound
+    halos shifted or killed as the kernel saw them); ``u_all`` f32[s_loc, P]
+    the rank's receiver features; ``mpos/mu/mv/mvalid`` the combined
+    misplaced rows: the rank's own worklist first, then each neighbour's
+    payload once. Positions are raw: displacements use the minimum image
+    when periodic, and each row's x plane maps into the extended grid by
+    its distance from the slab start, mod nsc.
+
+    Terms, receiver-centric as in ``neighborhood_sweeps``: A, mis <-
+    aligned, from ``ext`` windows (only the local prefix of the output is
+    complete); B, mis <- mis over the combined set; C, local aligned
+    receivers <- mis, dropping window cells in halo planes (the neighbour
+    owns them), except on a ``self_ring`` (one rank, periodic: the rank is
+    its own neighbour and ships nothing), where halo cells map back onto
+    their wrapped local planes. Returns ``(f_mis [M, 3], f_from [s_loc,
+    3])``, f_from receiver-gated."""
+    if nsc < 3:
+        raise ValueError("neighbourhood sweeps need nsc >= 3")
+    m = mpos.shape[0]
+    p = mu.shape[1]
+    dev = ext.device
+    scale = F.scale_fn(cfg)
+    r2 = float(r2_gate(cfg))
+    wrap = bool(cfg.wrap_forces)
+    w = f32(cfg.world_size)
+    k_loc = planes_local * nsc * nsc
+    s_loc = k_loc * cap
+    n_ext = planes_local + 2
+    k_ext = n_ext * nsc * nsc
+    mpos, mu, mv = mpos.float(), mu.float(), mv.float()
+
+    cellw = w / np.float32(nsc)
+    c3 = torch.clamp(torch.floor(F.tdiv(mpos + float(w * np.float32(0.5)),
+                                        cellw)).to(torch.int64), 0, nsc - 1)
+    prel = c3[:, 0] - me * planes_local
+    if wrap:
+        prel = torch.remainder(prel, nsc)
+        prel = torch.where(prel > planes_local, prel - nsc, prel)
+    px = prel + 1
+    o = torch.arange(-1, 2, device=dev)
+    offs = torch.stack(torch.meshgrid(o, o, o, indexing="ij"), -1).reshape(27, 3)
+    pxw = px[:, None] + offs[None, :, 0]
+    cyw = c3[:, 1:2] + offs[None, :, 1]
+    czw = c3[:, 2:3] + offs[None, :, 2]
+    ok_x = (pxw >= 0) & (pxw < n_ext)
+    if wrap:
+        cyw = torch.remainder(cyw, nsc)
+        czw = torch.remainder(czw, nsc)
+        ok_yz = torch.ones_like(ok_x)
+    else:
+        ok_yz = (cyw >= 0) & (cyw < nsc) & (czw >= 0) & (czw < nsc)
+        cyw = torch.clamp(cyw, 0, nsc - 1)
+        czw = torch.clamp(czw, 0, nsc - 1)
+    cell_ok = ok_x & ok_yz
+    pxw_c = torch.clamp(pxw, 0, n_ext - 1)
+    cell_ext = (pxw_c * nsc + cyw) * nsc + czw         # [m, 27]
+    k = 27 * cap
+    ok_cell = cell_ok[:, :, None].expand(m, 27, cap).reshape(m, k)
+
+    win = ext.reshape(k_ext, cap, ext.shape[-1])[cell_ext].reshape(m, k, -1)
+    pj = win[..., :3]
+    vj = win[..., 3:3 + p]
+    r2j = win[..., 3 + p]
+    okj = (r2j > 0.0) & ok_cell                          # aligned sources
+
+    delta = pj - mpos[:, None, :]                        # i -> j
+    if wrap:
+        delta = F.min_image(delta, w)
+    d2 = torch.sum(delta * delta, dim=-1)
+    gate = (d2 > 0.0) & (d2 < r2)
+    zero = torch.zeros_like(d2)
+    safe = torch.where(gate, d2, torch.ones_like(d2))
+
+    # term A: mis <- aligned
+    coef1 = F.pair_coef(mu[:, None, :], vj)[:, 0, :]
+    s1 = torch.where(gate & okj, scale(safe, coef1), zero)
+    f_mis = (delta * s1[..., None]).sum(1)
+
+    # term B: mis <- mis over the combined set
+    dmm = mpos[None, :, :] - mpos[:, None, :]
+    if wrap:
+        dmm = F.min_image(dmm, w)
+    d2mm = torch.sum(dmm * dmm, dim=-1)
+    gmm = (d2mm > 0.0) & (d2mm < r2) & mvalid[None, :]
+    smm = torch.where(gmm, scale(torch.where(gmm, d2mm, torch.ones_like(d2mm)),
+                                 F.pair_coef(mu, mv)), torch.zeros_like(d2mm))
+    f_mis = f_mis + (dmm * smm[..., None]).sum(1)
+
+    # term C: local aligned receivers <- mis (a window's 3 x-planes are
+    # consecutive and nsc >= 3 keeps them distinct mod nsc, so no local
+    # plane is hit twice)
+    if self_ring and wrap:
+        lx = torch.remainder(pxw - 1, planes_local)
+        loc_ok = ok_yz
+    else:
+        lx = pxw_c - 1
+        loc_ok = (pxw >= 1) & (pxw <= planes_local) & ok_yz
+    cell_loc = (lx * nsc + cyw) * nsc + czw
+    # receiver rows of each window cell, gathered straight from the
+    # (possibly strided) feature columns
+    rows = (torch.clamp(cell_loc, 0, k_loc - 1)[..., None] * cap
+            + torch.arange(cap, device=dev))
+    uj = u_all[rows.reshape(-1)].reshape(m, k, p).float()
+    loc_ok_k = loc_ok[:, :, None].expand(m, 27, cap).reshape(m, k)
+    ok2 = gate & (r2j > 0.0) & loc_ok_k & mvalid[:, None]
+    coef2 = F.pair_coef(uj, mv[:, None, :])[..., 0]
+    s2 = torch.where(ok2, scale(safe, coef2), zero)
+    contrib = (-delta * s2[..., None]).reshape(m * 27, cap * 3)
+    f_from = index_add_rows(
+        torch.zeros((k_loc, cap * 3), dtype=torch.float32, device=dev),
+        cell_loc.reshape(-1), contrib, (loc_ok & mvalid[:, None]).reshape(-1))
+    return f_mis, f_from.reshape(s_loc, 3)

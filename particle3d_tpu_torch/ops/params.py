@@ -17,9 +17,6 @@ import torch
 from ..config import SimConfig, f32
 from .forces import sdiv
 
-# feature width of the rank-1 pair coefficient U.V
-PAIR_P = 8
-
 # packed scalar layout (same indices as the JAX package and pair_law.cuh)
 PF_W, PF_INV_W, PF_M, PF_INV_M, PF_INV_1M, PF_C1M = 0, 1, 2, 3, 4, 5
 PF_LJ24E, PF_LJ_S2, PF_G, PF_G_S2, PF_K, PF_L = 6, 7, 8, 9, 10, 11

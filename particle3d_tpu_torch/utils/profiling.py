@@ -6,12 +6,16 @@ package's ``utils.profiling``).
         --cap 64 --out build/profile
     python -m particle3d_tpu_torch.utils.profiling --path culled \\
         --preset particle_life_large --out build/profile
+    python -m particle3d_tpu_torch.utils.profiling --path slab \\
+        --preset slab_8m --steps 4 --out build/profile
 
 For each preset: the all-in ms/step of a 16-step and a 32-step window of
 the chosen path (best of two, after a warm-up): ``dense``
 (``simulate_dense``, the default), ``culled`` (``simulate_culled``, one
-Morton sort per window) or ``simulate`` (the preset's own backend,
-e.g. ``allpairs_pallas``); the marginal
+Morton sort per window), ``simulate`` (the preset's own backend,
+e.g. ``allpairs_pallas``) or ``slab`` (``sharded_dense_steps`` on a
+1-rank mesh, from an ``init_sharded_dense`` carry of a
+``models.presets.SLAB_RUNS`` entry, named as the preset); the marginal
 ms/step between them, and a ``torch.profiler`` run over one 16-step window
 giving the device's busy time (kernel events only), its idle share against
 the unprofiled window of the same length (the profiler slows the host),
@@ -47,7 +51,7 @@ def _wall_s(fn, device):
     return time.perf_counter() - t0
 
 
-PATHS = ("dense", "culled", "simulate")
+PATHS = ("dense", "culled", "simulate", "slab")
 
 
 def _path_fn(path: str):
@@ -63,13 +67,31 @@ def _path_fn(path: str):
     raise ValueError(f"unknown path {path!r}; one of {PATHS}")
 
 
+def _slab_scene(name: str, device):
+    """(run, n, cfg) of a 1-rank slab window from a SLAB_RUNS entry."""
+    from ..models.presets import slab_run
+    from ..parallel import init_sharded_dense, make_mesh, sharded_dense_steps
+
+    n, cfg, dt, kw = slab_run(name)
+    mesh = make_mesh(1, device=device)
+    carry = init_sharded_dense(5, n, cfg, mesh, nsc=kw["nsc"], cap=kw["cap"],
+                               migcap=kw["migcap"])
+    return (lambda k: sharded_dense_steps(carry, cfg, dt, k, mesh, n=n, **kw),
+            n, cfg)
+
+
 def profile_window(state, cfg, dt, steps: int = WINDOW, top: int = 25,
                    trace_path: str | None = None, path: str = "dense"):
     """Time and profile windows of ``path`` from ``state``. Device fields
     are None when the state is not on a CUDA device."""
     fn = _path_fn(path)
-    device = state.positions.device
-    run = lambda k: fn(state, cfg, dt, k)  # noqa: E731
+    return _measure(lambda k: fn(state, cfg, dt, k), state.n,
+                    state.positions.device, cfg, path, steps, top, trace_path)
+
+
+def _measure(run, n: int, device, cfg, path: str, steps: int, top: int,
+             trace_path: str | None):
+    """profile_window's measurements of ``run(k)``, which runs k steps."""
     for k in (steps, 2 * steps):
         run(k)
     times = {steps: [], 2 * steps: []}
@@ -84,7 +106,7 @@ def profile_window(state, cfg, dt, steps: int = WINDOW, top: int = 25,
     if trace_path:
         prof.export_chrome_trace(trace_path)
     ka = prof.key_averages()
-    rec = {"n": state.n, "path": path, "neighbor": cfg.neighbor,
+    rec = {"n": n, "path": path, "neighbor": cfg.neighbor,
            "cell_capacity": cfg.cell_capacity, "steps": steps,
            "window_ms_per_step": t1 / steps * 1e3,
            "window2_ms_per_step": t2 / (2 * steps) * 1e3,
@@ -133,16 +155,23 @@ def main(argv=None):
             capture_output=True, text=True, check=True).stdout.strip())
     os.makedirs(a.out, exist_ok=True)
     res = {}
-    for preset in a.preset or ["particle_life_large", "particle_life_1m"]:
-        state, cfg, dt = make_scene(preset, seed=a.seed, n=a.n, device=device)
-        if a.cap is not None:
-            cfg = cfg.replace(cell_capacity=a.cap)
+    default = (["slab_8m", "slab_2m"] if a.path == "slab"
+               else ["particle_life_large", "particle_life_1m"])
+    for preset in a.preset or default:
         tag = preset if a.cap is None else f"{preset}_cap{a.cap}"
-        if a.path != "dense":
+        if a.path not in ("dense", "slab"):
             tag = f"{tag}_{a.path}"
-        rec, ka = profile_window(
-            state, cfg, dt, a.steps,
-            trace_path=os.path.join(a.out, f"trace_{tag}.json"), path=a.path)
+        trace = os.path.join(a.out, f"trace_{tag}.json")
+        if a.path == "slab":
+            run, n, cfg = _slab_scene(preset, device)
+            rec, ka = _measure(run, n, device, cfg, a.path, a.steps, 25, trace)
+        else:
+            state, cfg, dt = make_scene(preset, seed=a.seed, n=a.n,
+                                        device=device)
+            if a.cap is not None:
+                cfg = cfg.replace(cell_capacity=a.cap)
+            rec, ka = profile_window(state, cfg, dt, a.steps, trace_path=trace,
+                                     path=a.path)
         table = ka.table(sort_by="self_cuda_time_total" if device.type == "cuda"
                          else "self_cpu_time_total", row_limit=40)
         with open(os.path.join(a.out, f"profile_{tag}.txt"), "w") as f:

@@ -111,7 +111,8 @@ def test_cpu_tensors_take_the_plain_version():
     got = TS.column_sweep_forces(*ops[:5], *args)
     assert TS.KERNEL_LAUNCHES == before == 0
     assert torch.equal(got, TS.column_sweep_forces_ref(*ops[:5], *args))
-    with pytest.raises(NotImplementedError, match="halo"):
+    # halo mode needs two more source planes than the whole-grid layout has
+    with pytest.raises(ValueError, match=r"post_g: want float32\[80, 3"):
         TS.column_sweep_forces(*ops[:5], *args, halo=True)
     with pytest.raises(ValueError, match="nsc >= 3"):
         TS.column_sweep_forces(*TS.prepare_columns(
