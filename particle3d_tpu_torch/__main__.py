@@ -3,8 +3,8 @@
     python -m particle3d_tpu_torch run --preset particle_life_large --steps 48
     python -m particle3d_tpu_torch run --preset reference --steps 5 --device cpu
     python -m particle3d_tpu_torch presets
-    python -m particle3d_tpu_torch slab --run slab_8m --steps 10
-    torchrun --nproc_per_node=4 -m particle3d_tpu_torch slab --run slab_8m
+    python -m particle3d_tpu_torch slab --config slab_8m --steps 10
+    torchrun --nproc_per_node=4 -m particle3d_tpu_torch slab --config slab_8m
 
 ``run`` prints one JSON line: the JAX package's fields plus the number of
 force-kernel launches (``kernel_launches``, with one count per kernel in
@@ -87,7 +87,7 @@ def _cmd_slab(a):
     device = torch.device(a.device)
     initialize_distributed(backend="nccl" if device.type == "cuda" else "gloo")
     mesh = make_mesh(device=a.device)
-    n, cfg, dt, kw = slab_run(a.run)
+    n, cfg, dt, kw = slab_run(a.config)
     carry = init_sharded_dense(a.seed, n, cfg, mesh, nsc=kw["nsc"],
                                cap=kw["cap"], migcap=kw["migcap"])
     # one untimed step, thrown away (the step functions never write their
@@ -99,7 +99,7 @@ def _cmd_slab(a):
         carry, cfg, dt, a.steps, mesh, n=n, **kw)
     _sync(mesh.device)
     el = time.perf_counter() - t0
-    rec = {"run": a.run, "n": n, "steps": a.steps, "ranks": mesh.size,
+    rec = {"config": a.config, "n": n, "steps": a.steps, "ranks": mesh.size,
            "device": str(mesh.device), "wall_s": round(el, 3),
            "ms_per_step": round(el / a.steps * 1e3, 3),
            "max_movers": int(mov), "max_masked": int(mask),
@@ -134,7 +134,8 @@ def main(argv=None):
 
     sl = sub.add_parser("slab", help="stay-sharded slab run of a SLAB_RUNS "
                                      "configuration (torchrun for several ranks)")
-    sl.add_argument("--run", default="slab_2m")
+    # not --run: torchrun would take it for an abbreviation of its --run-path
+    sl.add_argument("--config", default="slab_2m")
     sl.add_argument("--steps", type=int, default=10)
     sl.add_argument("--seed", type=int, default=0)
     sl.add_argument("--device", choices=("cuda", "cpu"), default="cuda")

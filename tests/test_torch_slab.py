@@ -420,7 +420,7 @@ def test_slab_command_runs_one_rank(monkeypatch, capsys):
 
     monkeypatch.setitem(presets.SLAB_RUNS, "tiny", dict(
         n=700, world_size=W, nsc=8, cap=16, mcap=512, migcap=256, ocap=64))
-    rec = main(["slab", "--run", "tiny", "--steps", "2", "--device", "cpu"])
+    rec = main(["slab", "--config", "tiny", "--steps", "2", "--device", "cpu"])
     assert json.loads(capsys.readouterr().out.strip().splitlines()[-1]) == rec
     assert rec["n"] == 700 and rec["ranks"] == 1
     assert rec["lost"] == 0 and rec["max_masked"] == 0
