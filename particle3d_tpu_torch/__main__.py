@@ -14,9 +14,9 @@ CPU.
 
 ``slab`` runs a ``models.presets.SLAB_RUNS`` configuration on the slab
 decomposition, stay-sharded: one rank by default, or every rank of a
-torchrun launch (one process per card, NCCL; several cards are
-unverified). After one untimed step, rank 0 prints one JSON line with the
-timed window's ms/step and diagnostics.
+torchrun launch (one process per card, NCCL). After one untimed step,
+rank 0 prints one JSON line with the timed window's ms/step and
+diagnostics.
 """
 
 from __future__ import annotations
