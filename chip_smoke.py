@@ -5,13 +5,14 @@ NVIDIA Hopper GPU.
     python3 chip_smoke.py
 
 Runs from the root of a checkout and builds the port's kernels from their
-sources: the column sweep K1 (particle3d_tpu_torch/csrc/celllist_sweep.cu)
-and the all-pairs kernels K2, K3 and K4 (csrc/allpairs_sweep.cu). Phases,
-in order; any failure exits non-zero:
+sources: the column sweep K1 (particle3d_tpu_torch/csrc/celllist_sweep.cu),
+the all-pairs kernels K2, K3 and K4 (csrc/allpairs_sweep.cu) and the
+ghost-image sweep K5 (csrc/allpairs_mxu.cu). Phases, in order; any failure
+exits non-zero:
 
   1. device: name, and power limit as nvidia-smi reports it;
-  2. build both libraries with nvcc, in parallel (seconds, registers and
-     spills of every kernel);
+  2. build the three libraries with nvcc, in parallel (seconds, registers
+     and spills of every kernel);
   3. K1 against its plain torch version on the same operands: the
      particle_life_large layout at N=262,144 (grid 24), periodic and
      walled at cap 32 and periodic at cap 64, then Lennard-Jones, gravity
@@ -64,13 +65,40 @@ in order; any failure exits non-zero:
      grid 44, cap 64) runs: init_sharded_dense, 10 warm steps, 10 timed
      steps (masked + limbo 0, lost 0), ms/step, carry bytes, peak device
      memory, host synchronisations per step, and K1 halo's time per launch
-     at 8M against its plain version.
+     at 8M against its plain version;
+ 15. K5 against its plain version: the four laws of phase 8 at N=32,768
+     (periodic, with ghost images) and particle life walled (no ghosts),
+     N=12,345 (a ragged last tile), 12 species (feature width 16); fast
+     mode against a direct all-pairs sweep on the JAX test's N=200 scenes
+     (world 10, periodic and walled) and at N=32,768 in a world of 20; then
+     the particle_life_large_allpairs scene at N=262,144 with its 66,432
+     ghost rows, timed against the plain version, and fast mode there
+     (its error printed, not gated);
+ 16. the K5 path at full width: 4 steps of simulate on that scene with
+     neighbor="allpairs_mxu" (4 K5 launches, finite state, ms/step, peak
+     device memory), two steps rerun bit-identically, its step-0 forces
+     against the K2 path's, and the ghost count within capacity before and
+     after;
+ 17. lj_gas: `run --preset lj_gas --steps 16` at N=262,144 (K1 with the
+     Lennard-Jones law, velocity Verlet, the capacity ladder; masked 0)
+     and the ms/step of a 16-step window; K1 against its plain version on
+     its layout (cap 16); the XLA-style `celllist` backend on CUDA tensors
+     against the K2 path on a 4,096-particle block of the lj_gas lattice;
+     fresh_celllist_forces at cell_grid=2 against the plain all-pairs
+     sweep.
 
 Tolerance for every force comparison: relative L2 error <= 1e-5 and max
 abs error <= 1e-4 * max|F|. Between a kernel and its plain version only
 the order of the sums differs. A comparison also fails if max|F| exceeds
 1e6: such a scene is dominated by one near-singular pair, and the bounds
-would then pass a wrong kernel.
+would then pass a wrong kernel. K5 sums in factored form (|p|-sized terms
+that cancel), so its exact mode is held to relative L2 <= 3e-5 and max abs
+<= 1e-4 * max|F|, against its plain version and against the K2 path. Its
+fast mode is held to max abs <= 3e-3 * max|F| against a direct sweep on
+the JAX test's scenes (its own bound, tests/test_pallas_mxu.py), and to
+relative L2 <= 1e-3 (the JAX module's stated accuracy) at N=32,768, where
+one pair at distance 0.012 puts the formulation's own max abs error at
+3.3e-3 * max|F| (its plain version on the CPU against a float64 sum).
 
 The second-to-last line is a JSON record of each kernel (K1 and its halo
 mode are separate entries): launches on the path that drives it (each
@@ -78,7 +106,8 @@ path runs with every count set to 0 just before it; K1 halo's is the 8M
 timed window), error against the plain version, its time and the plain
 version's at the stated shape, and the bound (the larger of the operations over 67
 TFLOP/s FP32 and the bytes over 3.35 TB/s; operations are counted per
-pair on the unpadded feature width, see `ops_one_sided`). The last line is
+pair on the unpadded feature width, see `ops_one_sided` and `ops_mxu`;
+K5's pairs are those of its own rows, reals and ghost slots). The last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result.
 """
@@ -98,6 +127,12 @@ import torch
 DEVICE = "cuda"
 TOL_REL_L2 = 1e-5
 TOL_MAX_ABS = 1e-4  # times max|F|
+# K5's factored sums (see the docstring); fast mode's Gram-form d^2: the
+# JAX test's bound on its own scenes, the JAX module's stated relative
+# accuracy beyond them
+K5_REL_L2 = 3e-5
+FAST_MAX_ABS = 3e-3  # times max|F|, no relative L2 gate
+FAST_REL_L2 = 1e-3
 # A scene whose largest force exceeds this is degenerate (near-coincident
 # pairs under a singular law): one pair would dominate both error bounds
 MAX_PLAUSIBLE_F = 1e6
@@ -142,16 +177,25 @@ def timed_ms(fn, reps, warm=True):
     return start.elapsed_time(end) / reps, out
 
 
-def compare(name, got, want):
-    """Fail unless ``got`` matches ``want`` within the stated tolerance."""
+def compare(name, got, want, rel_l2_tol=TOL_REL_L2, max_abs_tol=TOL_MAX_ABS,
+            gate=True):
+    """Fail unless ``got`` matches ``want`` within the stated tolerance
+    (``rel_l2_tol`` None: no relative L2 gate; ``gate`` False: print the
+    error only)."""
     got, want = got.double(), want.double()
     err = (got - want).abs()
     scale = want.abs().max().item()
     rel_l2 = (torch.linalg.vector_norm(got - want)
               / torch.linalg.vector_norm(want)).item()
     max_abs = err.max().item()
-    ok = (bool(torch.isfinite(got).all()) and rel_l2 <= TOL_REL_L2
-          and max_abs <= TOL_MAX_ABS * scale and 0 < scale <= MAX_PLAUSIBLE_F)
+    ok = (bool(torch.isfinite(got).all())
+          and (rel_l2_tol is None or rel_l2 <= rel_l2_tol)
+          and max_abs <= max_abs_tol * scale and 0 < scale <= MAX_PLAUSIBLE_F)
+    if not gate:
+        log(f"  {name}: rel_l2={rel_l2:.3e} max_abs={max_abs:.3e} "
+            f"({max_abs / max(scale, 1e-30):.3e} of max|F|={scale:.3e}), "
+            f"not gated")
+        return max_abs
     log(f"  {name}: rel_l2={rel_l2:.3e} max_abs={max_abs:.3e} "
         f"max|F|={scale:.3e} -> {'ok' if ok else 'FAIL'}")
     if not ok:
@@ -172,14 +216,16 @@ def phase_device():
 
 
 def phase_build():
-    from particle3d_tpu_torch.ops import allpairs_sweep, celllist_sweep
+    from particle3d_tpu_torch.ops import (allpairs_mxu_sweep, allpairs_sweep,
+                                          celllist_sweep)
 
     t0 = time.perf_counter()
-    libs = {"K1": celllist_sweep, "K2-K4": allpairs_sweep}
+    libs = {"K1": celllist_sweep, "K2-K4": allpairs_sweep,
+            "K5": allpairs_mxu_sweep}
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
         logs = dict(zip(libs, pool.map(lambda m: m.build_kernel(),
                                        libs.values())))
-    log(f"[2] K1 and K2-K4 built and loaded in "
+    log(f"[2] K1, K2-K4 and K5 built and loaded in "
         f"{time.perf_counter() - t0:.2f} s")
     for name, build_log in logs.items():
         for line in _ptxas_summary(build_log):
@@ -194,13 +240,15 @@ def _ptxas_summary(build_log):
     registers, spill bytes and shared memory, from nvcc's -Xptxas -v."""
     out, entry, spills = [], None, ""
     for line in build_log.splitlines():
-        m = re.search(r"(column_sweep|rect|tri|pairlist)_kernelI((?:L[ib]\d+E)+)",
-                      line)
+        m = re.search(r"(column_sweep|rect|tri|pairlist|mxu)_kernelI"
+                      r"((?:L[ib]\d+E)+)", line)
         if m:
             args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2))]
             extra = {2: "", 3: f", P={args[-1]}",
                      4: f", halo={args[2]}, P={args[-1]}"}[len(args)]
-            entry = f"{m.group(1)}<{_LAWS[args[0]]}, wrap={args[1]}{extra}>"
+            flag = "fast" if m.group(1) == "mxu" else "wrap"
+            entry = (f"{m.group(1)}<{_LAWS[args[0]]}, {flag}={args[1]}"
+                     f"{extra}>")
         elif entry and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             spills = f"spills {st}/{ld} B"
@@ -246,6 +294,17 @@ def ops_one_sided(p, wrap):
 
 def ops_two_sided(p, wrap):
     return 37 + 4 * p + (7 if wrap else 0)
+
+
+# K5, per unordered pair: K2's count without the wrap (no wrap, no d^2
+# restore), plus the fourth sum of each side (the ones column): the i-side
+# four FMAs 8, the j-side four products and four sums 8; 41 + 4P. Fast
+# mode replaces deltas 3 and d^2 5 by the Gram form: a multiply and three
+# FMAs 7, |p_i|^2 + |p_j|^2 1, 2 - 2 g an FMA 2, the sum 1 and the clamp
+# 1; 45 + 4P. The index-diagonal mask (k = 0 only) and the per-row
+# fix-ups and norms are not per pair and are not counted.
+def ops_mxu(p, fast):
+    return (45 if fast else 41) + 4 * p
 
 
 def feature_width(state, cfg):
@@ -1076,6 +1135,222 @@ def phase_slab_full():
     return rec8
 
 
+def _mxu_pair(st, cfg, fast=False):
+    """K5 and its plain version on the same operands: (forces, plain
+    forces), after holding the ghost count to its capacity."""
+    from particle3d_tpu_torch.ops import allpairs_mxu_sweep as M
+    from particle3d_tpu_torch.ops import forces as F
+
+    gcap = _check_ghosts("", st, cfg)
+    u, v = F.pair_features(st, cfg)
+    ops = M.mxu_operands(st.positions, u, v, cfg, gcap, M.KERNEL_TILE)
+    args = (cfg.force_law, fast, M.KERNEL_TILE)
+    n = st.n
+    got = M.tri_forces(*M.mxu_sweep(*ops, *args))[:n]
+    want = M.tri_forces(*M.mxu_sweep_ref(*ops, *args))[:n]
+    return got, want
+
+
+def _check_ghosts(label, st, cfg):
+    """The recommended ghost capacity, after failing unless the frame's
+    ghost count fits it (beyond it wrap interactions would be dropped)."""
+    from particle3d_tpu_torch.ops import allpairs_mxu_sweep as M
+
+    if not cfg.wrap_forces:
+        return None
+    gcap = M.recommended_ghost_capacity(cfg, st.n)
+    count = int(M.ghost_count(st.positions, cfg))
+    if label:
+        log(f"  {label}: ghost_count {count} <= capacity {gcap}")
+    if count > gcap:
+        raise AssertionError(f"ghost count {count} exceeds capacity {gcap}")
+    return gcap
+
+
+def phase_mxu():
+    from particle3d_tpu_torch.config import reference_config
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import allpairs_mxu_sweep as M
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.ops import forces as F
+    from particle3d_tpu_torch.ops.allpairs import allpairs_forces
+    from particle3d_tpu_torch.state import init_scene
+
+    log(f"[15] K5 against its plain version (N={N_SMALL} and N={N_LARGE} "
+        f"with ghost images)")
+    k5 = dict(rel_l2_tol=K5_REL_L2)
+    fast = dict(rel_l2_tol=None, max_abs_tol=FAST_MAX_ABS)
+    gen = torch.Generator().manual_seed(10)
+    scenes = _law_scenes(N_SMALL, gen)
+    pl_st, pl_cfg = scenes[0][1], scenes[0][2]
+    scenes.insert(1, ("particle_life walled", pl_st,
+                      pl_cfg.replace(boundary="clamp", wrap_forces=False)))
+    for label, s, c in scenes:
+        compare(f"K5 {label} (N={N_SMALL})", *_mxu_pair(s, c), **k5)
+    ragged = _law_scenes(N_RAGGED, gen)[0]
+    compare(f"K5 particle_life (N={N_RAGGED}, ragged last tile)",
+            *_mxu_pair(ragged[1], ragged[2]), **k5)
+    label, s, c = _wide_scene(N_RAGGED, gen)
+    compare(f"K5 {label} (N={N_RAGGED}, P=16)", *_mxu_pair(s, c), **k5)
+
+    # fast mode: the JAX test's scenes and bound; at N=32,768 in a world of
+    # 20 the closest pair comes within ~0.01, where the Gram-form d^2 is
+    # mostly noise, so the max abs error is printed and the relative L2
+    # error gated at the JAX module's stated accuracy
+    wide = dict(rel_l2_tol=FAST_REL_L2, max_abs_tol=float("inf"))
+    for label, c, n, tol in (
+            ("periodic", reference_config(), 200, fast),
+            ("walled", reference_config().replace(boundary="clamp",
+                                                  wrap_forces=False), 200,
+             fast),
+            ("periodic, world 20", reference_config(world_size=20.0),
+             N_SMALL, wide)):
+        s = init_scene(gen, n, c, DEVICE)
+        u, v = F.pair_features(s, c)
+        got, want = _mxu_pair(s, c, fast=True)
+        direct = (allpairs_forces(s.positions, u, v, c) if n < A.TRI_MIN_N
+                  else A.pallas_allpairs_forces_tri(s.positions, u, v, c))
+        compare(f"K5 fast {label} (N={n}) vs a direct sweep", got, direct,
+                **tol)
+        compare(f"K5 fast {label} (N={n}) vs its plain version", got, want,
+                **tol)
+
+    st, cfg, _ = make_scene("particle_life_large_allpairs", seed=0, n=N_LARGE,
+                            device=DEVICE)
+    gcap = _check_ghosts(f"N={N_LARGE}", st, cfg)
+    u, v = F.pair_features(st, cfg)
+    ops = M.mxu_operands(st.positions, u, v, cfg, gcap, M.KERNEL_TILE)
+    args = (cfg.force_law, False, M.KERNEL_TILE)
+    mp = ops[0].shape[0]
+    m = N_LARGE + gcap
+    ms, (oa, ob) = timed_ms(lambda: M.mxu_sweep(*ops, *args), 3)
+    got = M.tri_forces(oa, ob)[:N_LARGE]
+    p = u.shape[1]
+    b = bound(m * (m - 1) / 2 * ops_mxu(p, False), nbytes(*ops[:5], oa, ob))
+    b_k2 = bound(N_LARGE * (N_LARGE - 1) / 2 * ops_two_sided(p, True), 0)
+    del oa, ob
+    plain_ms, (pa, pb) = timed_ms(lambda: M.mxu_sweep_ref(*ops, *args), 1,
+                                  warm=False)
+    want = M.tri_forces(pa, pb)[:N_LARGE]
+    del pa, pb
+    log(f"  K5 {ms:.3f} ms over M={m} rows ({mp // M.KERNEL_TILE} tiles), "
+        f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); K2's bound "
+        f"on the same scene {b_k2[0]:.4f} ms; out_b "
+        f"{mp // M.KERNEL_TILE // 2 + 1} x 3 x {mp} floats")
+    err = compare(f"K5 N={N_LARGE} + {gcap} ghost rows vs its plain version",
+                  got, want, **k5)
+    del want
+    fo = M.tri_forces(*M.mxu_sweep(*ops[:5], ops[5], cfg.force_law, True,
+                                   M.KERNEL_TILE))[:N_LARGE]
+    compare(f"K5 fast N={N_LARGE} vs exact K5", fo, got, gate=False)
+    del got, fo, ops
+    torch.cuda.empty_cache()
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
+            "shape": f"N={N_LARGE} + {gcap} ghost rows, same set"}
+
+
+def phase_mxu_path():
+    from particle3d_tpu_torch.engine.step import pair_accel, simulate
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    log(f"[16] the K5 path: simulate, 4 steps, N={N_LARGE}, "
+        f"neighbor=allpairs_mxu")
+    st, cfg, dt = make_scene("particle_life_large_allpairs", seed=0,
+                             n=N_LARGE, device=DEVICE)
+    cfg = cfg.replace(neighbor="allpairs_mxu")
+    _check_ghosts("start", st, cfg)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    ms, out = timed_ms(lambda: simulate(st, cfg, dt, 4), 1, warm=False)
+    launches = kernel_launches()
+    peak = torch.cuda.max_memory_allocated()
+    _expect("simulate(allpairs_mxu), 4 steps", launches, {"allpairs_mxu": 4})
+    _finite("simulate allpairs_mxu", out)
+    _check_ghosts("after 4 steps", out, cfg)
+    log(f"  {ms / 4:.3f} ms/step (CUDA events, 4 steps incl. the ghost "
+        f"build and the k-sum); peak device memory {peak / 1e9:.3f} GB")
+    a, again = simulate(st, cfg, dt, 2), simulate(st, cfg, dt, 2)
+    if not (torch.equal(a.positions, again.positions)
+            and torch.equal(a.velocities, again.velocities)):
+        raise AssertionError("simulate(allpairs_mxu): rerun not bit-identical")
+    log("  two steps rerun bit-identical")
+    f5 = pair_accel(st.positions, st, cfg)
+    f2 = pair_accel(st.positions, st, cfg.replace(neighbor="allpairs_pallas"))
+    compare(f"step-0 accelerations, K5 path vs K2 path (N={N_LARGE})", f5, f2,
+            rel_l2_tol=K5_REL_L2)
+    return launches["allpairs_mxu"], ms / 4
+
+
+def phase_lj_gas():
+    from particle3d_tpu_torch.__main__ import main as cli
+    from particle3d_tpu_torch.config import reference_config
+    from particle3d_tpu_torch.engine.step import pair_accel
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import forces as F
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.ops.allpairs import allpairs_forces
+    from particle3d_tpu_torch.ops.celllist_sweep import fresh_celllist_forces
+    from particle3d_tpu_torch.state import ParticleState
+
+    log(f"[17] python -m particle3d_tpu_torch run --preset lj_gas --steps 16 "
+        f"(N={N_LARGE})")
+    sync()
+    reset_kernel_launches()
+    rec = cli(["run", "--preset", "lj_gas", "--steps", "16", "--device",
+               DEVICE])
+    by = {k: c for k, c in rec["kernel_launches_by_kernel"].items() if c}
+    log(f"  history {rec['history']}, launches {by}, "
+        f"{rec['wall_s'] / 16 * 1e3:.3f} ms/step (host clock, incl. the "
+        f"warm-up force evaluation and the layout build)")
+    hist = rec["history"] or []
+    if (rec["n"] != N_LARGE or not hist or any(mk for _, _, mk in hist)
+            or sum(k for k, _, _ in hist) != 16):
+        raise AssertionError(f"lj_gas run not exact: {hist}")
+    if set(by) != {"celllist_sweep"} or by["celllist_sweep"] < 17:
+        raise AssertionError(f"lj_gas: launches {by}, expected K1 alone, at "
+                             f"least 17 times (warm-up + 16 steps)")
+    stats = [rec["kinetic_energy"], rec["max_speed"], *rec["momentum"]]
+    if not all(math.isfinite(x) for x in stats):
+        raise AssertionError(f"lj_gas run record not finite: {rec}")
+    ms = _window_ms_per_step("lj_gas", [c for _, c, _ in hist
+                                        if isinstance(c, int)][-1])
+    st, cfg, _ = make_scene("lj_gas", seed=0, device=DEVICE)
+    _sweep_case("K1 on the lj_gas layout (Lennard-Jones, cap 16)", st, cfg,
+                reps=5)
+
+    # the XLA-style cell list on the card: a 16^3 block of the lj_gas
+    # lattice (spacing 0.49 < the 0.5 cutoff; the N=4,096 preset's lattice
+    # is too sparse to hold a pair in range)
+    side = round(N_LARGE ** (1 / 3))
+    ijk = torch.stack(torch.meshgrid(*[torch.arange(16)] * 3, indexing="ij"),
+                      -1).reshape(-1, 3)
+    idx = ((ijk[:, 0] * side + ijk[:, 1]) * side + ijk[:, 2]).to(DEVICE)
+    sub = ParticleState(*(getattr(st, f)[idx]
+                          for f in ParticleState.__dataclass_fields__))
+    reset_kernel_launches()
+    f_cell = pair_accel(sub.positions, sub, cfg.replace(neighbor="celllist"))
+    sync()
+    _expect("celllist backend (plain torch)", kernel_launches(), {})
+    f_k2 = pair_accel(sub.positions, sub,
+                      cfg.replace(neighbor="allpairs_pallas"))
+    compare(f"celllist backend vs K2 path (lj_gas lattice block, "
+            f"N={sub.n}, grid {cfg.cell_grid}, cap {cfg.cell_capacity})",
+            f_cell, f_k2)
+
+    c = reference_config().replace(neighbor="celllist_pallas", cell_grid=2)
+    s = make_scene("reference", seed=0, n=N_FLAGSHIP, device=DEVICE)[0]
+    u, v = F.pair_features(s, c)
+    reset_kernel_launches()
+    got = fresh_celllist_forces(s.positions, u, v, c)
+    sync()
+    _expect("fresh_celllist_forces at cell_grid=2", kernel_launches(), {})
+    compare(f"fresh_celllist_forces cell_grid=2 vs all-pairs (N={s.n})", got,
+            allpairs_forces(s.positions, u, v, c))
+    return rec, ms
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -1099,6 +1374,9 @@ def main():
     phase_halo()
     phase_slab_gates()
     k1h = phase_slab_full()
+    k5 = phase_mxu()
+    k5["launches"], _ = phase_mxu_path()
+    phase_lj_gas()
     log(smi)  # the card and its power limit, beside the numbers below
     src = "particle3d_tpu_torch/csrc/allpairs_sweep.cu"
     table = [("celllist_sweep", "particle3d_tpu_torch/csrc/celllist_sweep.cu",
@@ -1113,7 +1391,9 @@ def main():
               {**k3, "launches": launches["allpairs_rect"]}),
              ("allpairs_pairlist", src,
               "particle3d_tpu/ops/pallas_allpairs.py:754",
-              {**k4, "launches": launches["allpairs_pairlist"]})]
+              {**k4, "launches": launches["allpairs_pairlist"]}),
+             ("allpairs_mxu", "particle3d_tpu_torch/csrc/allpairs_mxu.cu",
+              "particle3d_tpu/ops/pallas_allpairs_mxu.py:69", k5)]
     print(json.dumps({"kernels": [{
         "name": kname, "route": "cuda", "source": source, "replaces": repl,
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],

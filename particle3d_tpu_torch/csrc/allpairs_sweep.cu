@@ -68,57 +68,15 @@
 #include <cuda_runtime.h>
 
 #include <cstddef>
-#include <cstring>
 
-#include "pair_law.cuh"
+#include "tile_sweep.cuh"
 
 namespace {
 
-using p3t::PairParams;
+using namespace p3t;
 
 constexpr int RECT_THREADS = 128;  // K3 receivers per block
 constexpr int RECT_CHUNK = 128;    // K3 source rows staged per pass
-constexpr int TILE = 128;          // K2/K4 tile rows, one thread each
-constexpr int WARPS = TILE / 32;
-constexpr int GROUP = 8;           // source columns reduced together
-constexpr unsigned FULL = 0xffffffffu;
-
-template <int PP>
-__device__ __forceinline__ void load_vec(float (&dst)[PP], const float* src) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-#pragma unroll
-  for (int q = 0; q < PP / 4; ++q) {
-    const float4 x = s4[q];
-    dst[4 * q] = x.x;
-    dst[4 * q + 1] = x.y;
-    dst[4 * q + 2] = x.z;
-    dst[4 * q + 3] = x.w;
-  }
-}
-
-template <int PP>
-__device__ __forceinline__ void copy_vec(float* dst, const float* src) {
-  const float4* s4 = reinterpret_cast<const float4*>(src);
-  float4* d4 = reinterpret_cast<float4*>(dst);
-#pragma unroll
-  for (int q = 0; q < PP / 4; ++q) d4[q] = s4[q];
-}
-
-// a . b in a fixed order; b is 16-byte aligned shared memory (broadcast)
-template <int PP>
-__device__ __forceinline__ float dot(const float (&a)[PP], const float* b) {
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float c = 0.0f;
-#pragma unroll
-  for (int q = 0; q < PP / 4; ++q) {
-    const float4 x = b4[q];
-    c = fmaf(a[4 * q], x.x, c);
-    c = fmaf(a[4 * q + 1], x.y, c);
-    c = fmaf(a[4 * q + 2], x.z, c);
-    c = fmaf(a[4 * q + 3], x.w, c);
-  }
-  return c;
-}
 
 // ---------------------------------------------------------------- K3
 
@@ -213,40 +171,6 @@ __device__ __forceinline__ Row<PP> load_row(const float* __restrict__ pos,
   load_vec<PP>(r.u, u + row * PP);
   load_vec<PP>(r.v, v + row * PP);
   return r;
-}
-
-// Sums x[g] over the warp's 32 lanes for each of the GROUP = 8 columns g in
-// a fixed order: three rounds of recursive halving (each lane keeps half of
-// its columns and takes its partner's share of them), then a butterfly
-// over the remaining lane bits. Lane l ends with the total of column
-// column_of_lane(l & 7).
-__device__ __forceinline__ float warp_column_sums(const float (&x)[GROUP],
-                                                  const int lane) {
-  const bool b0 = lane & 1;
-  float y[4];
-#pragma unroll
-  for (int c = 0; c < 4; ++c) {
-    const float send = b0 ? x[c] : x[c + 4];
-    const float keep = b0 ? x[c + 4] : x[c];
-    y[c] = keep + __shfl_xor_sync(FULL, send, 1);
-  }
-  const bool b1 = lane & 2;
-  float z[2];
-#pragma unroll
-  for (int c = 0; c < 2; ++c) {
-    const float send = b1 ? y[c] : y[c + 2];
-    const float keep = b1 ? y[c + 2] : y[c];
-    z[c] = keep + __shfl_xor_sync(FULL, send, 2);
-  }
-  const bool b2 = lane & 4;
-  float s = (b2 ? z[1] : z[0]) + __shfl_xor_sync(FULL, b2 ? z[0] : z[1], 4);
-  s += __shfl_xor_sync(FULL, s, 8);
-  s += __shfl_xor_sync(FULL, s, 16);
-  return s;
-}
-
-__device__ __forceinline__ int column_of_lane(const int lane) {
-  return ((lane & 1) << 2) | (lane & 2) | ((lane >> 2) & 1);
 }
 
 // One unordered tile pair: the receiver tile's row `r` is in this thread's
@@ -401,41 +325,7 @@ pairlist_kernel(const float* __restrict__ pos, const float* __restrict__ u,
   out_a[3 * row + 2] = az * sc;
 }
 
-// ------------------------------------------------------------ dispatch
-
-// Calls f.run<LAW, WRAP, P>() with compile-time constants; false when a
-// value has no instantiation.
-template <int PP, bool WRAP, typename F>
-bool dispatch_law(int law, const F& f) {
-  switch (law) {
-    case p3t::PARTICLE_LIFE:
-      f.template run<p3t::PARTICLE_LIFE, WRAP, PP>();
-      return true;
-    case p3t::LENNARD_JONES:
-      f.template run<p3t::LENNARD_JONES, WRAP, PP>();
-      return true;
-    case p3t::GRAVITY:
-      f.template run<p3t::GRAVITY, WRAP, PP>();
-      return true;
-    case p3t::SPRING:
-      f.template run<p3t::SPRING, WRAP, PP>();
-      return true;
-    default:
-      return false;
-  }
-}
-
-template <int PP, typename F>
-bool dispatch_wrap(int law, int wrap, const F& f) {
-  return wrap ? dispatch_law<PP, true>(law, f) : dispatch_law<PP, false>(law, f);
-}
-
-template <typename F>
-bool dispatch(int law, int wrap, int p, const F& f) {
-  if (p == 8) return dispatch_wrap<8>(law, wrap, f);
-  if (p == 16) return dispatch_wrap<16>(law, wrap, f);
-  return false;
-}
+// ------------------------------------------------------------ launchers
 
 struct RectLaunch {
   dim3 grid;
@@ -480,17 +370,6 @@ struct PairlistLaunch {
   }
 };
 
-PairParams unpack(const float* params) {
-  PairParams pf;
-  std::memcpy(pf.v, params, sizeof(pf.v));
-  return pf;
-}
-
-int launched(bool ok) {
-  return ok ? static_cast<int>(cudaGetLastError())
-            : static_cast<int>(cudaErrorInvalidValue);
-}
-
 }  // namespace
 
 // Plain C entry points (loaded with ctypes). `params` points to the 14
@@ -520,8 +399,8 @@ extern "C" int p3t_allpairs_rect(const float* pos, const float* u, int n,
   f.m = m;
   f.span = (per + RECT_CHUNK - 1) / RECT_CHUNK * RECT_CHUNK;
   f.out_part = out_part;
-  f.pf = unpack(params);
-  return launched(dispatch(law, wrap, p, f));
+  f.pf = p3t::unpack(params);
+  return p3t::launched(p3t::dispatch(law, wrap, p, f));
 }
 
 extern "C" int p3t_allpairs_tri(const float* pos, const float* u,
@@ -548,8 +427,8 @@ extern "C" int p3t_allpairs_tri(const float* pos, const float* u,
   f.kspan = (nk + splits - 1) / splits;
   f.out_a_part = out_a_part;
   f.out_b = out_b;
-  f.pf = unpack(params);
-  return launched(dispatch(law, wrap, p, f));
+  f.pf = p3t::unpack(params);
+  return p3t::launched(p3t::dispatch(law, wrap, p, f));
 }
 
 extern "C" int p3t_allpairs_pairlist(const float* pos, const float* u,
@@ -574,6 +453,6 @@ extern "C" int p3t_allpairs_pairlist(const float* pos, const float* u,
   f.row_start = row_start;
   f.out_a = out_a;
   f.out_b = out_b;
-  f.pf = unpack(params);
-  return launched(dispatch(law, wrap, p, f));
+  f.pf = p3t::unpack(params);
+  return p3t::launched(p3t::dispatch(law, wrap, p, f));
 }

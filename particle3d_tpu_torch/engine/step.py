@@ -25,12 +25,6 @@ from ..ops import forces as F
 from ..ops.allpairs import allpairs_forces
 from .boundaries import apply_boundary
 
-# backends whose kernels are not ported yet, and where ROADMAP.md lists them
-_NOT_PORTED = {
-    "allpairs_mxu": "the MXU all-pairs kernel K5 (ROADMAP.md queue 2)",
-    "celllist": "the XLA-style cell list (ROADMAP.md queue 1)",
-}
-
 
 def _vec3(values, like: torch.Tensor) -> torch.Tensor:
     """f32[3] on ``like``'s device, built by fills (no host copy)."""
@@ -51,14 +45,18 @@ def pair_accel(positions, state: ParticleState, cfg: SimConfig):
         from ..ops.allpairs_sweep import pallas_allpairs_forces_culled
 
         f = pallas_allpairs_forces_culled(positions, u, v, cfg)
+    elif cfg.neighbor == "allpairs_mxu":
+        from ..ops.allpairs_mxu_sweep import pallas_allpairs_forces_mxu
+
+        f = pallas_allpairs_forces_mxu(positions, u, v, cfg)
+    elif cfg.neighbor == "celllist":
+        from ..ops.celllist import celllist_forces
+
+        f = celllist_forces(positions, u, v, cfg)
     elif cfg.neighbor == "celllist_pallas":
         from ..ops.celllist_sweep import fresh_celllist_forces
 
         f = fresh_celllist_forces(positions, u, v, cfg)
-    elif cfg.neighbor in _NOT_PORTED:
-        raise NotImplementedError(
-            f"neighbor backend {cfg.neighbor!r} needs "
-            f"{_NOT_PORTED[cfg.neighbor]}, not ported yet")
     else:
         raise ValueError(f"unknown neighbor backend {cfg.neighbor!r}")
     return f * float(F.kick_scale(cfg))
@@ -186,15 +184,23 @@ def simulate_dense(state: ParticleState, cfg: SimConfig, dt, num_steps: int,
 
 def _sidecar_apply(f, positions, ds, mis_idx, cfg, nsc, cap):
     """Add the overflow sidecar's exact forces: forces on the misplaced
-    rows and from them onto aligned receivers."""
-    if nsc < 3:
-        raise NotImplementedError(
-            f"the overflow sidecar for cell_grid={nsc} < 3 (sidecar_sweeps) "
-            f"is not ported yet: ROADMAP.md queue 1, 'sidecar_sweeps path'")
-    from ..ops.overflow import neighborhood_apply
+    rows and from them onto aligned receivers. The 27-cell neighbourhood
+    sweeps when the grid has them (nsc >= 3), else the dense sweeps over
+    every slot (``sidecar_sweeps``)."""
+    from ..ops.compaction import index_add_rows
+    from ..ops.overflow import neighborhood_apply, sidecar_sweeps
 
-    return neighborhood_apply(f, positions, ds.u, ds.v, ds.r2 > 0.0, mis_idx,
-                              cfg, nsc, cap)
+    if nsc >= 3:
+        return neighborhood_apply(f, positions, ds.u, ds.v, ds.r2 > 0.0,
+                                  mis_idx, cfg, nsc, cap)
+    s_total = ds.pid.shape[0]
+    mvalid = mis_idx < s_total
+    msafe = torch.clamp(mis_idx, max=s_total - 1)
+    f_mis, f_from = sidecar_sweeps(
+        positions, ds.u, ds.v, ds.pid >= 0,
+        positions[msafe], ds.u[msafe], ds.v[msafe], mvalid, cfg)
+    f_from = torch.where((ds.r2 > 0.0)[:, None], f_from, 0.0)
+    return index_add_rows(f + f_from, msafe, f_mis, mvalid)
 
 
 def dense_pair_forces(positions, ds, mis, cfg: SimConfig, nsc: int, cap: int,
@@ -204,7 +210,11 @@ def dense_pair_forces(positions, ds, mis, cfg: SimConfig, nsc: int, cap: int,
     from ..ops.celllist_dense import dense_forces_fresh
 
     f = dense_forces_fresh(positions, ds, cfg, nsc, cap)
-    f = f * (ds.r2 > 0.0).to(f.dtype)[:, None]
+    # a select, not a multiply: an empty slot's row is a stale copy that can
+    # sit on top of the particle it left, where a singular law (Lennard-
+    # Jones) gives it an infinite force, and inf * 0 would be a NaN that
+    # integrates and then poisons its neighbours as a source (0 * NaN)
+    f = torch.where((ds.r2 > 0.0)[:, None], f, 0.0)
     if ocap:
         f = _sidecar_apply(f, positions, ds, mis, cfg, nsc, cap)
     return f

@@ -4,8 +4,7 @@ Every preset is ``(generator, n, device) -> (state, cfg, dt)`` with the
 JAX package's geometry, law, integrator and ``dt``. Scenes are drawn from
 a CPU ``torch.Generator`` seeded by ``make_scene``, so a seed gives the
 same scene on every device (not the JAX package's scene: the two
-frameworks' generators differ). ``lj_gas`` is not ported: below N=32,768
-it needs the XLA-style cell list.
+frameworks' generators differ).
 """
 
 from __future__ import annotations
@@ -121,6 +120,36 @@ def _spring_lattice(gen, n, device):
             cfg, 2e-3)
 
 
+def _lj_gas(gen, n, device):
+    """BASELINE config 3: N=262,144 Lennard-Jones gas in a periodic box of
+    32, velocity Verlet. From N=32,768 the column-sweep cell list on a 32^3
+    grid (cell width 1.0, twice the 0.5 cutoff; mean occupancy 8, cap 16);
+    below, the XLA-style cell list on an 8^3 grid. A near-uniform lattice
+    plus 0.02-sigma jitter avoids Lennard-Jones blow-ups at t = 0;
+    velocities have sigma 0.1."""
+    n = 262144 if n is None else n
+    big = n >= 32768
+    cfg = SimConfig(
+        force_law="lennard_jones", lj_epsilon=0.2, lj_sigma=0.15,
+        particle_effect_radius=0.5, world_size=32.0,
+        integrator="velocity_verlet", boundary="wrap", coefficient=0.0,
+        neighbor="celllist_pallas" if big else "celllist",
+        cell_grid=32 if big else 8,
+        cell_capacity=16 if big else max(16, 4 * n // 512),
+    ).validate()
+    side = round(n ** (1 / 3))
+    while side ** 3 < n:
+        side += 1
+    lin = torch.linspace(-15.5, 15.5, side, dtype=torch.float32)
+    grid = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), -1)
+    jitter = 0.02 * torch.randn((n, 3), generator=gen, dtype=torch.float32)
+    st = init_scene(gen, n, cfg, device)
+    vel = 0.1 * torch.randn((n, 3), generator=gen, dtype=torch.float32)
+    dev = st.positions.device
+    return (st.replace(positions=(grid.reshape(-1, 3)[:n] + jitter).to(dev),
+                       velocities=vel.to(dev)), cfg, 1e-3)
+
+
 PRESETS: dict[str, Callable] = {
     "reference": _reference,
     "reference_walls": _reference_walls,
@@ -130,6 +159,7 @@ PRESETS: dict[str, Callable] = {
     "verlet_elastic": _verlet_elastic,
     "gravity_nbody": _gravity_nbody,
     "spring_lattice": _spring_lattice,
+    "lj_gas": _lj_gas,
 }
 
 
@@ -139,11 +169,10 @@ def list_presets() -> list[str]:
 
 def make_scene(name: str, seed: int = 0, n: int | None = None,
                device="cuda"):
-    """-> (state, cfg, dt) for a ported preset, on the card unless
-    ``device`` says otherwise (raises without a card)."""
+    """-> (state, cfg, dt) for a preset, on the card unless ``device``
+    says otherwise (raises without a card)."""
     if name not in PRESETS:
-        raise KeyError(f"preset {name!r} is not ported; ported presets: "
-                       f"{list_presets()}")
+        raise KeyError(f"unknown preset {name!r}; presets: {list_presets()}")
     device = resolve_device(device)
     gen = torch.Generator().manual_seed(seed)
     return PRESETS[name](gen, n, device)

@@ -61,7 +61,8 @@ _REF_MAX_ELEMS = 1 << 24
 KERNEL_LAUNCHES = {"allpairs_rect": 0, "allpairs_tri": 0,
                    "allpairs_pairlist": 0}
 
-_LIB = ("allpairs_sweep", ("allpairs_sweep.cu", "pair_law.cuh"))
+_LIB = ("allpairs_sweep", ("allpairs_sweep.cu", "tile_sweep.cuh",
+                           "pair_law.cuh"))
 
 
 def _library():
@@ -126,14 +127,16 @@ def _splits(blocks: int, most: int, device) -> int:
     return max(1, min(most, -(-(_BLOCKS_PER_SM * sms) // blocks)))
 
 
-def _launch(name: str, fn, args, device, what: str):
+def _launch(name: str, fn, args, device, what: str, counts=None):
+    """Launch on the current stream, raise on a refused launch, and count
+    it in ``counts`` (this module's ``KERNEL_LAUNCHES`` by default)."""
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*args, stream)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err} "
                            f"({what})")
-    KERNEL_LAUNCHES[name] += 1
+    (KERNEL_LAUNCHES if counts is None else counts)[name] += 1
 
 
 def _round_to(n: int, m: int) -> int:

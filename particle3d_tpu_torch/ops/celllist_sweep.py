@@ -323,7 +323,11 @@ def fresh_celllist_forces(positions, u, v, cfg: SimConfig,
     """Accumulated pair forces [N, 3] through a fresh column layout and K1:
     the ``celllist_pallas`` backend of ``simulate`` (counterpart of the JAX
     package's ``pallas_celllist_forces``). Capacity-overflow particles get
-    exact forces from the overflow sidecar (``ops.overflow``)."""
+    exact forces from the overflow sidecar (``ops.overflow``). ``nsc`` and
+    ``cap`` default to the config's, else to ``celllist.grid_dims`` and
+    ``default_capacity(slack=2.5)``; below 3 supercells per axis the
+    XLA-style cell list (``celllist.celllist_forces``) takes over."""
+    from .celllist import celllist_forces, default_capacity, grid_dims
     from .celllist_dense import OCAP
     from .compaction import index_add_rows, masked_indices
     from .overflow import neighborhood_sweeps
@@ -332,15 +336,12 @@ def fresh_celllist_forces(positions, u, v, cfg: SimConfig,
     dev = positions.device
     nsc = cfg.cell_grid if nsc is None else nsc
     cap = cfg.cell_capacity if cap is None else cap
-    if nsc is None or cap is None:
-        raise NotImplementedError(
-            "deriving cell_grid / cell_capacity from the config is not "
-            "ported yet (ROADMAP.md queue 1, 'the XLA-style cell list'): set "
-            "cfg.cell_grid and cfg.cell_capacity")
+    if nsc is None:
+        nsc = grid_dims(float(cfg.world_size), float(cfg.particle_effect_radius))
+    if cap is None:
+        cap = default_capacity(n, nsc, slack=2.5)
     if nsc < 3:
-        raise NotImplementedError(
-            f"cell_grid={nsc} < 3 needs the XLA-style cell list, not ported "
-            f"yet (ROADMAP.md queue 1, 'the XLA-style cell list')")
+        return celllist_forces(positions, u, v, cfg, nc=nsc, capacity=cap)
     check_cell_width(cfg, nsc)
     u, v = F.pad_features(u, v)
 

@@ -14,9 +14,10 @@ pair is computed exactly once across {grid kernel, these sweeps}:
     laws are directional, so this is f(j <- i), not -f(i <- j)).
 
 ``slab_neighborhood_sweeps`` is the slab decomposition's form, per rank
-over the halo-extended planes. Needs nsc >= 3 (periodic neighbour cells
-must be distinct). The ``sidecar_sweeps`` / ``rect_forces`` path for
-smaller grids is not ported.
+over the halo-extended planes. Both need nsc >= 3 (periodic neighbour cells
+must be distinct); smaller grids take ``sidecar_sweeps``, which sweeps the
+misplaced rows against every slot. ``rect_forces`` is the plain blocked
+sweep of receivers against a masked source set.
 """
 
 from __future__ import annotations
@@ -28,6 +29,80 @@ from ..config import SimConfig, f32
 from . import forces as F
 from .compaction import index_add_rows
 from .params import r2_gate
+
+
+def _blocks(n: int, b: int):
+    return [(i, min(i + b, n)) for i in range(0, n, b)]
+
+
+def _pair_scale(delta, ok, coef, scale, r2: float):
+    """The pair scale s [..] of displacements ``delta`` [.., 3]: 0 < d^2 <
+    r2 and ``ok``; 0 elsewhere."""
+    d2 = torch.sum(delta * delta, dim=-1)
+    valid = (d2 > 0.0) & (d2 < r2) & ok
+    safe = torch.where(valid, d2, torch.ones_like(d2))
+    return torch.where(valid, scale(safe, coef), torch.zeros_like(d2))
+
+
+def rect_forces(pos_i, u_i, pos_j, v_j, valid_j, cfg: SimConfig,
+                block_i: int = 65536, block_j: int = 65536):
+    """Accumulated forces [NI, 3] on receivers i from sources j.
+    ``valid_j`` masks phantom source rows (empty slots hold stale finite
+    values); receiver rows are not masked (callers gate or scatter the
+    output). Blocked over both axes: peak memory O(block_i * block_j)."""
+    scale = F.scale_fn(cfg)
+    r2 = float(r2_gate(cfg))
+    w = f32(cfg.world_size)
+    pos_i, u_i = pos_i.float(), u_i.float()
+    pos_j, v_j = pos_j.float(), v_j.float()
+    out = []
+    for i0, i1 in _blocks(pos_i.shape[0], block_i):
+        acc = torch.zeros((i1 - i0, 3), dtype=torch.float32,
+                          device=pos_i.device)
+        for j0, j1 in _blocks(pos_j.shape[0], block_j):
+            delta = pos_j[None, j0:j1] - pos_i[i0:i1, None]  # i -> j
+            if cfg.wrap_forces:
+                delta = F.min_image(delta, w)
+            s = _pair_scale(delta, valid_j[None, j0:j1],
+                            F.pair_coef(u_i[i0:i1], v_j[j0:j1]), scale, r2)
+            acc = acc + torch.einsum("ijc,ij->ic", delta, s)
+        out.append(acc)
+    if not out:
+        return pos_i.new_zeros((0, 3))
+    return torch.cat(out)
+
+
+def sidecar_sweeps(positions, u_all, v_all, src_ok, mpos, mu, mv, mvalid,
+                   cfg: SimConfig, block: int = 65536):
+    """Both sidecar sweeps in one pass over the S slot rows, sharing the
+    pair geometry: ``(f_mis [M, 3], f_from [S, 3])``, the forces on the M
+    misplaced rows from every valid slot (``src_ok``), and the forces from
+    the valid misplaced rows (``mvalid``) onto every slot (callers gate
+    them to aligned receivers). The laws are directional, so each direction
+    has its own coefficient and scale. For any grid; cost O(M * S)."""
+    scale = F.scale_fn(cfg)
+    r2 = float(r2_gate(cfg))
+    w = f32(cfg.world_size)
+    mpos, mu, mv = mpos.float(), mu.float(), mv.float()
+    f_mis = torch.zeros((mpos.shape[0], 3), dtype=torch.float32,
+                        device=positions.device)
+    f_from = []
+    for b0, b1 in _blocks(positions.shape[0], block):
+        ps = positions[b0:b1].float()
+        delta = mpos[None, :, :] - ps[:, None, :]  # [b, m, 3], slot -> mis
+        if cfg.wrap_forces:
+            delta = F.min_image(delta, w)
+        # forces on the slots from the misplaced rows
+        s2 = _pair_scale(delta, mvalid[None, :],
+                         F.pair_coef(u_all[b0:b1].float(), mv), scale, r2)
+        f_from.append(torch.einsum("smc,sm->sc", delta, s2))
+        # forces on the misplaced rows from the valid slots
+        s1 = _pair_scale(delta, src_ok[b0:b1, None],
+                         F.pair_coef(v_all[b0:b1].float(), mu), scale, r2)
+        f_mis = f_mis - torch.einsum("smc,sm->mc", delta, s1)
+    if not f_from:
+        return f_mis, positions.new_zeros((0, 3))
+    return f_mis, torch.cat(f_from)
 
 
 def neighborhood_sweeps(positions, u_all, v_all, src_ok, mpos, mu, mv, mvalid,

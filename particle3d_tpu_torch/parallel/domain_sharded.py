@@ -364,6 +364,9 @@ def _make_step_body(cfg: SimConfig, dt, g: _Geom, mesh: Mesh,
         return index_add_rows(f, dst, vals, dst < f.shape[0])
 
     def integrate(data, limbo_data, mis, r2):
+        # forces of empty and misplaced rows are selected away, never
+        # multiplied by 0: a stale row under a singular law can hold an
+        # infinite force (see engine.step.dense_pair_forces)
         keep = r2 > 0.0
         if ocap and cfg.integrator == "euler":
             # Euler evaluates forces once, at the pre-step state: kernel +
@@ -372,7 +375,8 @@ def _make_step_body(cfg: SimConfig, dt, g: _Geom, mesh: Mesh,
             fk, ext = _halo_forces(data[:, _POS], data, r2, cfg, g, mesh, True)
             f_mis, f_from, slot_dst, lim_dst = sidecar_terms(
                 data, limbo_data, mis, data[:, _POS], limbo_data[:, _POS], ext)
-            f_slot = add_rows(fk * keep[:, None] + f_from, slot_dst, f_mis) * kick
+            f_slot = add_rows(torch.where(keep[:, None], fk, 0.0) + f_from,
+                              slot_dst, f_mis) * kick
             f_lim = add_rows(torch.zeros((limbocap, 3), device=dev), lim_dst,
                              f_mis) * kick
             ps = _step(ParticleState(data[:, _POS], data[:, _VEL],
@@ -395,7 +399,7 @@ def _make_step_body(cfg: SimConfig, dt, g: _Geom, mesh: Mesh,
             def accel_fn(positions, st, c):
                 f, ext = _halo_forces(positions[:s_loc], data, r2, c, g, mesh,
                                       True)
-                f = f * keep[:, None]
+                f = torch.where(keep[:, None], f, 0.0)
                 f_mis, f_from, slot_dst, lim_dst = sidecar_terms(
                     data, limbo_data, mis, positions[:s_loc],
                     positions[s_loc:], ext)
@@ -419,7 +423,7 @@ def _make_step_body(cfg: SimConfig, dt, g: _Geom, mesh: Mesh,
 
         def accel_fn(positions, st, c):
             f, _ = _halo_forces(positions, data, r2, c, g, mesh, False)
-            return f * (kick * keep[:, None].float())
+            return torch.where(keep[:, None], f * kick, 0.0)
 
         ps = _step(ParticleState(data[:, _POS], data[:, _VEL], dummy_species,
                                  dummy_masses, data[:, _ACC]),

@@ -23,6 +23,7 @@ from particle3d_tpu.state import from_numpy as jax_from_numpy
 
 import particle3d_tpu_torch as P
 from particle3d_tpu_torch.config import from_jax_config
+from particle3d_tpu_torch.ops import allpairs_mxu_sweep as M
 from particle3d_tpu_torch.ops import allpairs_sweep as A
 from particle3d_tpu_torch.ops import forces as TF
 from particle3d_tpu_torch.ops.params import pack_params
@@ -192,6 +193,12 @@ def test_kernel_wrappers_check_operands_and_never_fall_back():
     with pytest.raises(ValueError, match="no all-pairs kernel"):
         A.pairlist_sweep(*meta[:2], meta[1], meta[4], meta[4], w, w, pf,
                          "particle_life", True, 32)
+    p4 = torch.zeros((n, 4))
+    with pytest.raises(ValueError, match="no all-pairs kernel"):
+        M.mxu_sweep(*[x.to("meta") for x in (p4, u, u, r2, r2)], pf,
+                    "particle_life", False, 32)
+    with pytest.raises(ValueError, match="want"):
+        M.mxu_sweep(pos, u, u, r2, r2, pf, "particle_life", False, 32)
     cuda = torch.device("cuda")
     with pytest.raises(ValueError, match="feature width"):
         A._kernel_ready(cuda, 12)

@@ -203,3 +203,44 @@ def test_profile_window_times_the_main_path(tmp_path):
     assert rec["device_busy_ms_per_step"] is None
     assert rec["device_idle_share"] is None
     assert trace.stat().st_size > 0 and len(ka) > 0
+
+
+def test_stale_rows_stay_inert_under_lennard_jones():
+    """An empty slot keeps a stale copy of the particle that left it. Under
+    Lennard-Jones a stale row on top of a live particle gets an infinite
+    force; it must be selected away (inf * 0 is NaN, which would integrate
+    and then reach live neighbours as a source), so every row stays finite
+    and the live rows' forces do not change."""
+    from particle3d_tpu_torch.config import SimConfig
+    from particle3d_tpu_torch.ops.celllist_dense import (OCAP, build_dense,
+                                                         sidecar_indices)
+
+    cfg = SimConfig(force_law="lennard_jones", lj_epsilon=0.2, lj_sigma=0.15,
+                    particle_effect_radius=0.5, world_size=8.0,
+                    integrator="velocity_verlet", coefficient=0.0,
+                    neighbor="celllist_pallas", cell_grid=8,
+                    cell_capacity=16).validate()
+    rng = np.random.default_rng(4)
+    lin = (np.arange(8) - 3.5) * 0.45
+    g = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+    pos = (g + rng.normal(0, 0.02, g.shape)).astype(np.float32)
+    n = pos.shape[0]
+    st = P.from_numpy(pos, rng.normal(0, 0.1, (n, 3)).astype(np.float32),
+                      np.zeros(n, np.int32), device="cpu")
+    ds = build_dense(st, cfg, 8, 16)
+    live = torch.nonzero(ds.pid >= 0)[0, 0]
+    cell = int(live) // 16
+    empty = (torch.nonzero(ds.pid[cell * 16:(cell + 1) * 16] < 0)[0, 0]
+             + cell * 16)
+    before = engine.dense_pair_forces(ds.pos, ds, sidecar_indices(ds), cfg, 8,
+                                      16, OCAP)
+    data = ds.data.clone()
+    data[empty] = data[live]
+    data[empty, :3] += 1e-6  # a stale row just off the live one
+    ds = ds.replace(data=data)
+    f = engine.dense_pair_forces(ds.pos, ds, sidecar_indices(ds), cfg, 8, 16,
+                                 OCAP)
+    assert bool(torch.isfinite(f).all())
+    assert torch.equal(f[ds.pid >= 0], before[ds.pid >= 0])
+    out, _ = engine._dense_scan(ds, cfg, 1e-3, 3, 8, 16, 64)
+    assert bool(torch.isfinite(out.data).all())

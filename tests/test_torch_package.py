@@ -42,14 +42,17 @@ names = [m.name for m in pkgutil.walk_packages(p.__path__, p.__name__ + ".")]
 for name in names:
     importlib.import_module(name)
 assert not [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
-print(len(names))
+print(" ".join(names))
 """
 
 
 def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)
-    assert int(out.stdout.strip()) >= 16
+    names = out.stdout.split()
+    assert len(names) >= 18
+    assert {"particle3d_tpu_torch.ops.allpairs_mxu_sweep",
+            "particle3d_tpu_torch.ops.celllist"} <= set(names)
 
 
 def test_from_jax_config_round_trip():
@@ -126,12 +129,16 @@ def test_device_cuda_without_cuda_raises(monkeypatch):
 
 
 def test_unported_presets_and_bad_configs_raise():
-    with pytest.raises(KeyError, match="particle_life_large"):
-        P.make_scene("lj_gas")
+    """Every JAX preset is ported; an unknown name and bad configs raise."""
+    from particle3d_tpu.models import list_presets as jax_list_presets
+
     assert P.list_presets() == [
-        "gravity_nbody", "particle_life_1m", "particle_life_large",
+        "gravity_nbody", "lj_gas", "particle_life_1m", "particle_life_large",
         "particle_life_large_allpairs", "reference", "reference_walls",
         "spring_lattice", "verlet_elastic"]
+    assert set(jax_list_presets()) <= set(P.list_presets())
+    with pytest.raises(KeyError, match="lj_gas"):
+        P.make_scene("lj_liquid")
     with pytest.raises(ConfigError):
         P.reference_config(world_size=1.0)
     with pytest.raises(ConfigError):
@@ -168,7 +175,7 @@ def test_entry_points_default_to_the_card(monkeypatch):
 @pytest.mark.parametrize("name", ["reference_walls",
                                   "particle_life_large_allpairs",
                                   "verlet_elastic", "gravity_nbody",
-                                  "spring_lattice"])
+                                  "spring_lattice", "lj_gas"])
 def test_preset_matches_jax_preset(name):
     """Geometry, law, integrator, backend and dt of each ported preset equal
     the JAX preset's, read through from_jax_config; the scene (drawn from
@@ -196,3 +203,10 @@ def test_preset_matches_jax_preset(name):
     if name == "spring_lattice":  # a deterministic lattice: the same points
         np.testing.assert_allclose(st.positions.numpy(),
                                    np.asarray(jst.positions), atol=1e-6)
+    if name == "lj_gas":  # the same lattice, each with its 0.02-sigma jitter
+        side = 8  # 8^3 = 512 points
+        lin = np.linspace(-15.5, 15.5, side, dtype=np.float32)
+        grid = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"),
+                        -1).reshape(-1, 3)
+        for pos in (st.positions.numpy(), np.asarray(jst.positions)):
+            np.testing.assert_allclose(pos, grid, rtol=0, atol=5 * 0.02)
