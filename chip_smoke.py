@@ -16,8 +16,13 @@ exits non-zero:
   3. K1 against its plain torch version on the same operands: the
      particle_life_large layout at N=262,144 (grid 24), periodic and
      walled at cap 32 and periodic at cap 64, then Lennard-Jones, gravity
-     and spring at N=32,768, and particle life at cap 512 (the capacity
-     ladder's top rung);
+     and spring at N=32,768, Lennard-Jones at cap 16, particle life at
+     cap 512 (the capacity ladder's top rung), an odd grid that no block
+     height divides (nsc 17, cap 32), a walled scene with its x >= 0 half
+     empty (whole empty columns), and a lattice that fills every supercell
+     exactly to cap 8; every K1 comparison in this script also requires
+     exactly 0 on the dead receiver rows (own gate <= 0), and the idle-lane
+     share of K1's sweep loop on the 262k layout is printed;
   4. main path: a 16-step simulate_dense window at N=262,144 (no masked
      rows, one K1 launch per step, finite state), its step-0 forces on
      4,096 particles against a plain all-pairs sweep over all sources, a
@@ -34,10 +39,13 @@ exits non-zero:
      jittered lattice), at N=12,345 (97 tiles: odd count, ragged last
      tile) and at N=262,144 (whole, and on 4,096 sampled receivers against
      the plain rectangular sweep), then its mask mode against dense K2 on
-     a clustered N=32,768 scene;
+     a clustered N=32,768 scene, and a scene with padded rows at the
+     origin and a real particle 1e-4 from them under Lennard-Jones (N=300:
+     finite, and equal to plain all-pairs);
   9. K4 against its plain version at N=32,768 and N=12,345, and at
      N=262,144 against dense K2 on the Morton-sorted particle_life_large
-     scene;
+     scene, and on phase 8's padded-row scene with the lower-triangular
+     worklist (the padded tile as a receiver);
  10. the all-pairs paths: `run --preset particle_life_large_allpairs
      --steps 4` (4 K2 launches), two steps of it rerun bit-identically, the
      flagship step (reference scene, N=4,096) against plain all-pairs,
@@ -52,7 +60,8 @@ exits non-zero:
      periodic and walled: on the 1-rank extended operands (576 receiver
      columns, 624 source columns, plus the dummy when walled), on an
      interior-split call (528 receiver columns, the pack itself as
-     sources), and at feature width 16 (12 species); halo K1 against
+     sources), on a one-plane call (one receiver plane, three source
+     planes), and at feature width 16 (12 species); halo K1 against
      non-halo K1 on the same layout; K1 against its plain version at
      width 16;
  13. the 1-rank slab gates: sharded_dense_simulate against simulate_dense
@@ -65,7 +74,7 @@ exits non-zero:
      grid 44, cap 64) runs: init_sharded_dense, 10 warm steps, 10 timed
      steps (masked + limbo 0, lost 0), ms/step, carry bytes, peak device
      memory, host synchronisations per step, and K1 halo's time per launch
-     at 8M against its plain version;
+     at 8M against its plain version, with its idle-lane share;
  15. K5 against its plain version: the four laws of phase 8 at N=32,768
      (periodic, with ghost images) and particle life walled (no ghosts),
      N=12,345 (a ragged last tile), 12 species (feature width 16); fast
@@ -139,6 +148,7 @@ MAX_PLAUSIBLE_F = 1e6
 N_LARGE = 262_144
 N_SMALL = 32_768
 N_DENSE = 20_000  # ~312 occupants per cell of a 4^3 grid
+N_ODD = 78_608    # 16 a supercell of a 17^3 grid
 STEPS = 16
 N_SAMPLE = 4096   # receivers sampled for checks against all sources
 N_RECT = 1536     # same-set K3 sweeps (below the N=2,048 switch to K2)
@@ -325,7 +335,64 @@ def k1_pairs(r2, nsc, cap):
     return float((occ * nbr).sum() - occ.sum())
 
 
-def _sweep_case(label, state, cfg, reps):
+# K1's block geometry (csrc/celllist_sweep.cu): receiver slots aimed at per
+# block, supercells a block at most, receivers a thread, resident blocks an
+# SM at feature width 8
+K1_SLOTS_TARGET, K1_ZR_MAX, K1_R, K1_BLOCKS_PER_SM = 448, 64, 2, 7
+
+
+def k1_idle_lane_share(live, nsc, cap, sms):
+    """Share of K1's sweep-loop lane slots that evaluate no live pair on a
+    periodic layout with own gates ``live`` [nsc^2, nsc*cap] (cap <= 512,
+    feature width 8, ``sms`` SMs): blocks of zr supercells, R receivers of
+    one supercell a thread, and each warp runs a neighbour window as long
+    as its longest lane, so a lane is idle on a second receiver its
+    supercell lacks and while its neighbours finish longer windows (stage
+    splits are not counted)."""
+    import torch.nn.functional as tnf
+
+    ncol = nsc * nsc
+    occ = live.reshape(nsc, nsc, nsc, cap).sum(-1)            # [x, y, z]
+    zwin = occ + occ.roll(1, 2) + occ.roll(-1, 2)
+    win = torch.stack([zwin.roll((-dx, -dy), (0, 1)) for dx in (-1, 0, 1)
+                       for dy in (-1, 0, 1)], 2).reshape(ncol, 9, nsc)
+    zr_max = min(K1_ZR_MAX, max(1, K1_SLOTS_TARGET // cap))
+    nblk = -(-nsc // zr_max)
+    while nblk < nsc and 2 * ncol * nblk < 3 * sms * K1_BLOCKS_PER_SM:
+        nblk += 1
+    zr = -(-nsc // nblk)
+    nzb = -(-nsc // zr)
+    occ_c = occ.reshape(ncol, nsc)
+    t = (occ_c + K1_R - 1) // K1_R                            # tasks
+    tb = tnf.pad(t, (0, nzb * zr - nsc)).reshape(ncol, nzb, zr)
+    start = (tb.cumsum(-1) - tb).reshape(ncol, -1)[:, :nsc].reshape(-1)
+    block = (torch.arange(ncol, device=live.device)[:, None] * nzb
+             + torch.arange(nsc, device=live.device)[None] // zr).reshape(-1)
+    tf = t.reshape(-1)
+    sc = torch.repeat_interleave(torch.arange(ncol * nsc, device=live.device),
+                                 tf)
+    first = tf.cumsum(0) - tf
+    local = start[sc] + torch.arange(sc.shape[0], device=live.device) - first[sc]
+    key = block[sc] * 64 + local // 32                        # the warp
+    w = win.permute(0, 2, 1).reshape(ncol * nsc, 9)[sc]
+    mx = torch.zeros((int(key.max()) + 1, 9), dtype=w.dtype,
+                     device=live.device).scatter_reduce_(
+        0, key[:, None].expand(-1, 9), w, "amax")
+    useful = (occ_c * win.sum(1)).sum().item()
+    return 1.0 - useful / (32 * K1_R * mx.sum().item())
+
+
+def _dead_rows_zero(label, got, live):
+    """Fail unless K1 left exactly 0 on every receiver row whose own gate
+    is <= 0 (``live`` [NCOL, CS] is the own gate > 0)."""
+    dead = got.permute(0, 2, 1)[~live]
+    if not bool((dead == 0).all()):
+        raise AssertionError(f"{label}: {int((dead != 0).any(-1).sum())} dead "
+                             f"receiver rows are not exactly 0")
+    log(f"  {label}: {dead.shape[0]} dead receiver rows, all exactly 0")
+
+
+def _sweep_case(label, state, cfg, reps, idle_share=False):
     """Time and compare K1 with its plain version on one dense layout."""
     from particle3d_tpu_torch.ops import celllist_sweep as S
     from particle3d_tpu_torch.ops.celllist_dense import build_dense, sweep_operands
@@ -344,7 +411,13 @@ def _sweep_case(label, state, cfg, reps):
               nbytes(*ops, got))
     log(f"  {label}: {int(live.sum())} receivers, K1 {ms:.3f} ms, "
         f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
-    return compare(label, pick(got), pick(want)), ms, plain_ms, b
+    err = compare(label, pick(got), pick(want))
+    _dead_rows_zero(label, got, live)
+    if idle_share:
+        sms = torch.cuda.get_device_properties(live.device).multi_processor_count
+        log(f"  {label}: idle-lane share of K1's sweep loop "
+            f"{k1_idle_lane_share(live, nsc, cap, sms):.4f}")
+    return err, ms, plain_ms, b
 
 
 def phase_sweeps():
@@ -355,7 +428,8 @@ def phase_sweeps():
     log(f"[3] K1 against its plain version (N={N_LARGE}, grid 24, cap 32)")
     st, cfg, _ = make_scene("particle_life_large", seed=0, n=N_LARGE,
                             device=DEVICE)
-    main = _sweep_case("particle_life wrap", st, cfg, reps=20)
+    main = _sweep_case("particle_life wrap", st, cfg, reps=20,
+                       idle_share=True)
     _sweep_case("particle_life walled", st,
                 cfg.replace(boundary="clamp", wrap_forces=False), reps=5)
     # the rung the `run` command commits at this N (phase 5)
@@ -384,12 +458,37 @@ def phase_sweeps():
         if law == "lennard_jones":
             s = s.replace(positions=lattice.to(DEVICE))
         _sweep_case(f"{law} wrap (N={N_SMALL}, grid 16)", s, c, reps=5)
+        if law == "lennard_jones":  # 8 particles a supercell
+            _sweep_case(f"{law} wrap cap 16 (N={N_SMALL}, grid 16)", s,
+                        c.replace(cell_capacity=16), reps=5)
     # the capacity ladder's top rung: at cap 512 each block serves its
     # receivers in two passes of 256 threads, and cells hold > 256 occupants
     dense = reference_config(world_size=16.0).replace(
         neighbor="celllist_pallas", cell_grid=4, cell_capacity=512)
     _sweep_case(f"particle_life wrap (N={N_DENSE}, grid 4, cap 512)",
                 init_scene(gen, N_DENSE, dense, DEVICE), dense, reps=5)
+    # an odd grid that no block height divides: 17 supercells a column
+    odd = reference_config(world_size=25.5).replace(
+        neighbor="celllist_pallas", cell_grid=17, cell_capacity=32)
+    _sweep_case(f"particle_life wrap (N={N_ODD}, grid 17, cap 32)",
+                init_scene(gen, N_ODD, odd, DEVICE), odd, reps=5)
+    # walled, the x >= 0 half empty: whole columns without a particle
+    half = base.replace(boundary="clamp", wrap_forces=False)
+    s = init_scene(gen, N_SMALL, half, DEVICE)
+    pos = s.positions.clone()
+    pos[:, 0] = -pos[:, 0].abs()
+    _sweep_case(f"particle_life walled, x >= 0 empty (N={N_SMALL}, grid 16)",
+                s.replace(positions=pos), half, reps=5)
+    # every supercell filled exactly to cap: a 16^3 lattice of spacing 1 in
+    # a grid of 8 cells of 2
+    full = reference_config(world_size=16.0).replace(
+        neighbor="celllist_pallas", cell_grid=8, cell_capacity=8)
+    lin = torch.arange(16) - 7.5
+    lat = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), -1)
+    lat = lat.reshape(-1, 3) + 0.05 * torch.randn(4096, 3, generator=gen)
+    s = init_scene(gen, 4096, full, DEVICE).replace(positions=lat.to(DEVICE))
+    _sweep_case("particle_life wrap, every supercell full (N=4096, grid 8, "
+                "cap 8)", s, full, reps=5)
     return main
 
 
@@ -599,6 +698,28 @@ def _morton_sorted(st, cfg):
                            for f in ParticleState.__dataclass_fields__))
 
 
+def _padded_origin_scene():
+    """N=300 under Lennard-Jones (sigma 0.1, epsilon 0.5, cutoff 0.5) in a
+    periodic box of 10: one particle at (1e-4, 0, 0) in tile 0, 299 on a
+    lattice at least 0.35 from it, and 84 padded rows at the origin in the
+    last of three tiles of 128. A padded row and that particle have an
+    infinite pair scale, which K2's and K4's j-side must select away."""
+    from particle3d_tpu_torch.config import SimConfig
+    from particle3d_tpu_torch.state import from_numpy
+
+    cfg = SimConfig(force_law="lennard_jones", lj_sigma=0.1, lj_epsilon=0.5,
+                    particle_effect_radius=0.5, world_size=10.0,
+                    wrap_forces=True).validate()
+    lin = (torch.arange(7) - 3) * 0.45 + 0.2
+    g = torch.stack(torch.meshgrid(lin, lin, lin, indexing="ij"), -1)
+    gen = torch.Generator().manual_seed(12)
+    pos = torch.cat([torch.tensor([[1e-4, 0.0, 0.0]]), g.reshape(-1, 3)[:299]
+                     + 0.01 * torch.randn(299, 3, generator=gen)])
+    st = from_numpy(pos.numpy(), torch.zeros(300, 3).numpy(),
+                    torch.zeros(300, dtype=torch.int32).numpy(), device=DEVICE)
+    return st, cfg
+
+
 def phase_tri():
     from particle3d_tpu_torch.models import make_scene
     from particle3d_tpu_torch.ops import allpairs_sweep as A
@@ -662,6 +783,16 @@ def phase_tri():
             masked, A.tri_forces(*A.tri_sweep(*o, *a2)))
     compare("K2 mask mode vs its plain version", masked,
             A.tri_forces(*A.tri_sweep_ref(*o, *a2, mask=mask)))
+
+    from particle3d_tpu_torch.ops.allpairs import allpairs_forces
+
+    ps, pc = _padded_origin_scene()
+    pu, pv = F.pair_features(ps, pc)
+    got, want = _tri_pair(ps, pc)
+    compare("K2 padded rows at the origin, a particle 1e-4 away (N=300, "
+            "Lennard-Jones) vs plain all-pairs", got,
+            allpairs_forces(ps.positions, pu, pv, pc))
+    compare("K2 padded rows at the origin vs its plain version", got, want)
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
             "shape": f"N={N_LARGE}, same set"}
 
@@ -721,6 +852,24 @@ def phase_pairlist():
     del pa, pb
     compare(f"K4 N={N_LARGE} (step-0 forces of the culled rung) vs dense K2",
             got, A.pallas_allpairs_forces_tri(st.positions, u, v, cfg))
+    del got, oa, ob
+
+    from particle3d_tpu_torch.ops.allpairs import allpairs_forces
+
+    # the lower-triangular worklist, so that the padded tile is a receiver
+    ps, pc = _padded_origin_scene()
+    pu, pv = F.pair_features(ps, pc)
+    ops = A.tri_operands(ps.positions, pu, pv, pc, t)
+    pnt = ops[0].shape[0] // t
+    wi, wj = (torch.tensor(x, dtype=torch.int32, device=DEVICE) for x in
+              zip(*[(i, j) for i in range(pnt) for j in range(i + 1)]))
+    pargs = (*ops[:5], wi, wj, ops[5], pc.force_law, True, t)
+    pg = A.pairlist_forces(*A.pairlist_sweep(*pargs), wj)[:ps.n]
+    compare("K4 padded rows at the origin, lower-triangular worklist (N=300, "
+            "Lennard-Jones) vs plain all-pairs", pg,
+            allpairs_forces(ps.positions, pu, pv, pc))
+    compare("K4 padded rows at the origin vs its plain version", pg,
+            A.pairlist_forces(*A.pairlist_sweep_ref(*pargs), wj)[:ps.n])
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
             "shape": f"N={N_LARGE}, {count} surviving tile pairs of {t}"}
 
@@ -881,8 +1030,10 @@ def _slab_operands(st, cfg, split=False):
     """K1 halo operands on a 1-rank mesh from ``st`` (None: the carry is
     given instead), with the gate r2 of the receivers. ``split``: the
     interior-split call (receivers without the edge planes, the pack itself
-    as sources); else the single call on the extended planes. Returns
-    (operands, receiver r2 [ncol, cs], pack, pos_d, u_d, geometry)."""
+    as sources), or "plane": one receiver plane (the second) against the
+    pack's first three planes; else the single call on the extended planes.
+    Returns (operands, receiver r2 [ncol, cs], pack, pos_d, u_d,
+    geometry)."""
     from particle3d_tpu_torch.ops.celllist_sweep import bin_sid
     from particle3d_tpu_torch.ops.params import r2_gate
     from particle3d_tpu_torch.parallel import build_sharded_dense, make_mesh
@@ -899,7 +1050,11 @@ def _slab_operands(st, cfg, split=False):
     r2 = torch.where(aligned, float(r2_gate(cfg)), -1.0)
     pos_d, u_d, pack = DS.slab_pack(data[:, :3], data, r2, cfg, g, 0)
     r2c = r2.reshape(g.cols_local, g.cs)
-    if split:
+    if split == "plane":
+        ops = DS.halo_call_operands(pos_d[nsc:2 * nsc], u_d[nsc:2 * nsc],
+                                    pack[:3 * nsc], cfg, cap)
+        r2c = r2c[nsc:2 * nsc]
+    elif split:
         ops = DS.halo_call_operands(pos_d[nsc:-nsc], u_d[nsc:-nsc], pack, cfg,
                                     cap)
         r2c = r2c[nsc:-nsc]
@@ -926,6 +1081,7 @@ def _halo_case(label, st, cfg, split=False, against_full=False):
     log(f"  {label}: {ops[0].shape[0]} receiver columns, "
         f"{ops[2].shape[0]} source columns, P={ops[1].shape[1]}")
     compare(label, pick(got), pick(want))
+    _dead_rows_zero(label, got, live)
     if against_full:
         p = u_d.shape[-1]
         post_g, vt_g, r2_g = S.ghost_columns(pos_d, pack[..., 3:3 + p],
@@ -958,6 +1114,7 @@ def phase_halo():
         _halo_case(f"halo {label}, extended operands", st, c,
                    against_full=True)
         _halo_case(f"halo {label}, interior-split call", st, c, split=True)
+        _halo_case(f"halo {label}, one-plane call", st, c, split="plane")
     gen = torch.Generator().manual_seed(9)
     wide = _wide_cfg(cfg, gen).validate()
     wst = init_scene(gen, N_LARGE, wide, DEVICE)
@@ -1113,6 +1270,10 @@ def _slab_run(name, kernel_row=False):
         live = r2c > 0
         pick = lambda f: f.permute(0, 2, 1)[live]  # noqa: E731
         err = compare(f"K1 halo at {name}", pick(got), pick(want))
+        _dead_rows_zero(f"K1 halo at {name}", got, live)
+        sms = torch.cuda.get_device_properties(live.device).multi_processor_count
+        log(f"  K1 halo at {name}: idle-lane share of K1's sweep loop "
+            f"{k1_idle_lane_share(live, kw['nsc'], kw['cap'], sms):.4f}")
         del want
         # particle life's unpadded features: one column per species
         b = bound(k1_pairs(r2c.reshape(-1), kw["nsc"], kw["cap"])

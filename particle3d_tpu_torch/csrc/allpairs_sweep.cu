@@ -220,7 +220,9 @@ __device__ __forceinline__ void tile_pair(
       const float cji = dot<PP>(r.v, sm.u + b * PP);
       const p3t::PairParts parts = p3t::pair_parts<LAW>(d2, valid, pf);
       const float sij = p3t::directional_scale(parts, cij);
-      const float sji = p3t::directional_scale(parts, cji) * r.mask;
+      // a select, not a multiply: a padded row sits at the origin, where a
+      // singular law can give an infinite scale, and inf * 0 is NaN
+      const float sji = r.mask > 0.0f ? p3t::directional_scale(parts, cji) : 0.0f;
       ax = fmaf(dx, sij, ax);
       ay = fmaf(dy, sij, ay);
       az = fmaf(dz, sij, az);

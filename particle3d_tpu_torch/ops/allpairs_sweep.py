@@ -242,7 +242,10 @@ def _tile_pairs_ref(pi, ui, vi, mi, pj, uj, vj, r2j, params, law: str,
         d2 = d2 * float(w * w)
     parts = pair_parts(law, d2, valid, params)
     s_ij = directional_scale(parts, F.pair_coef(ui, vj))
-    s_ji = directional_scale(parts, F.pair_coef(vi, uj)) * mi[:, :, None]
+    # selected, not multiplied by the row mask: a padded row sits at the
+    # origin, where a singular law can give inf, and inf * 0 is NaN
+    s_ji = torch.where(mi[:, :, None] > 0,
+                       directional_scale(parts, F.pair_coef(vi, uj)), 0.0)
     i_side = torch.stack([(dx * s_ij).sum(2), (dy * s_ij).sum(2),
                           (dz * s_ij).sum(2)], dim=-1)
     j_side = torch.stack([(dx * s_ji).sum(1), (dy * s_ji).sum(1),

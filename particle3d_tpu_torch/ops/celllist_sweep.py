@@ -18,8 +18,12 @@ never wraps; y wraps (or hits the walled dummy column) as without the halo.
 
 ``column_sweep_forces`` launches the hand-written CUDA kernel
 (``csrc/celllist_sweep.cu``) for CUDA tensors and computes the plain
-version ``column_sweep_forces_ref`` for CPU tensors. The CUDA path has no
-fallback: it launches or raises. ``KERNEL_LAUNCHES`` counts the launches
+version ``column_sweep_forces_ref`` for CPU tensors. Both return exactly 0
+on every receiver slot whose own gate is <= 0 (empty, misplaced or dead
+slots): the gate ``r2_g[c, 0, cap + slot]`` of its own column ``c``, which
+is source column ``c + nsc`` in halo mode. The kernel sweeps live slots
+only, so it never evaluates such a row. The CUDA path has no fallback: it
+launches or raises. ``KERNEL_LAUNCHES`` counts the launches
 without the halo, ``HALO_LAUNCHES`` those in halo mode.
 
 Not ported here: the cadenced ``CellLayout`` half, and the Mosaic
@@ -104,10 +108,10 @@ def _check_operands(pos_d, u_d, post_g, vt_g, r2_g, wrap, nsc, cap, halo):
 
 def column_sweep_forces(pos_d, u_d, post_g, vt_g, r2_g, params, law: str,
                         wrap: bool, nsc: int, cap: int, halo: bool = False):
-    """K1: f32[NCOL, 3, CS] forces on every receiver slot (garbage on empty
-    slots). ``halo=False``: NCOL = nsc^2, the whole grid. ``halo=True``:
-    NCOL is any whole number of x-planes and the sources carry NCOL + 2*nsc
-    columns (module docstring).
+    """K1: f32[NCOL, 3, CS] forces on every receiver slot whose own gate is
+    > 0, exactly 0 on the others. ``halo=False``: NCOL = nsc^2, the whole
+    grid. ``halo=True``: NCOL is any whole number of x-planes and the
+    sources carry NCOL + 2*nsc columns (module docstring).
 
     ``params`` is the host-side f32[14] vector of ``pack_params``."""
     global KERNEL_LAUNCHES, HALO_LAUNCHES
@@ -173,7 +177,8 @@ def column_sweep_forces_ref(pos_d, u_d, post_g, vt_g, r2_g, params, law: str,
     windows, blocked over columns so that no temporary exceeds
     ``_REF_MAX_ELEMS`` elements (one unblocked gather at 262k would take
     ~18 GB). Walled boxes read the masked dummy column, as the TPU kernel
-    does."""
+    does. Rows whose own gate is <= 0 are selected to exactly 0, as the
+    kernel leaves them."""
     ncol, cs = pos_d.shape[0], nsc * cap
     p = u_d.shape[1]
     dev = pos_d.device
@@ -215,7 +220,8 @@ def column_sweep_forces_ref(pos_d, u_d, post_g, vt_g, r2_g, params, law: str,
         out[c0:c1] = torch.stack(
             [(dx * s).sum(-1), (dy * s).sum(-1), (dz * s).sum(-1)],
             dim=1).reshape(b, 3, cs)
-    return out
+    own = r2_g[nsc:nsc + ncol] if halo else r2_g[:ncol]
+    return torch.where(own[:, :, cap:cap + cs] > 0.0, out, 0.0)
 
 
 def fold_to_cells(pos_r, w, nsc: int, cap: int, col0_x: int = 0):

@@ -204,3 +204,57 @@ def test_kernel_wrappers_check_operands_and_never_fall_back():
         A._kernel_ready(cuda, 12)
     with pytest.raises(ValueError, match="tile"):
         A._kernel_ready(cuda, 8, t=64)
+
+
+
+def _padded_origin_scene():
+    """N = 300 at t = 128 (the kernels' tile): 84 padded rows at the origin,
+    in the last of three tiles. Lennard-Jones in a periodic box of 10, one
+    real particle at (1e-4, 0, 0) in tile 0, the other 299 on a lattice at
+    least 0.35 from it. K2's step k = 1 sweeps tile 2's rows, padded ones
+    included, as receivers against tile 0; with two tiles (N = 100 at
+    t = 64) the padded tile would only ever be a source, and the fault
+    would not show."""
+    cfg = SimConfig(force_law="lennard_jones", lj_sigma=0.1, lj_epsilon=0.5,
+                    particle_effect_radius=0.5, world_size=10.0,
+                    wrap_forces=True).validate()
+    lin = (np.arange(7) - 3) * 0.45 + 0.2
+    g = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+    rng = np.random.default_rng(12)
+    pos = np.concatenate([[[1e-4, 0.0, 0.0]], g[:299]
+                          + rng.normal(0, 0.01, (299, 3))]).astype(np.float32)
+    zeros = np.zeros_like(pos)
+    st = P.from_numpy(pos, zeros, np.zeros(300, np.int32), device="cpu")
+    return from_jax_config(cfg), st
+
+
+@pytest.mark.parametrize("kernel", ["tri", "pairlist"])
+def test_padded_rows_at_origin_stay_inert(kernel):
+    """A padded row at the origin and a real particle 1e-4 from it: under
+    Lennard-Jones their pair's scale is infinite. K2's and K4's j-side must
+    select the padded row away (inf * 0 would be NaN in the real row's
+    force), and the real rows match the plain all-pairs oracle. K4 runs the
+    lower-triangular worklist (each tile against the tiles before it), so
+    that the padded tile is a receiver; the survival mask's upper triangle
+    never makes it one."""
+    from particle3d_tpu_torch.ops.allpairs import allpairs_forces
+
+    cfg, st = _padded_origin_scene()
+    n, t = st.n, A.KERNEL_TILE
+    u, v = TF.pair_features(st, cfg)
+    ops = A.tri_operands(st.positions, u, v, cfg, t)
+    nt = ops[0].shape[0] // t
+    assert (nt, ops[0].shape[0] - n) == (3, 84)
+    args = (cfg.force_law, True, t)
+    if kernel == "tri":
+        got = A.tri_forces(*A.tri_sweep_ref(*ops, *args))[:n]
+    else:
+        wi, wj = (torch.tensor(a, dtype=torch.int32) for a in
+                  zip(*[(i, j) for i in range(nt) for j in range(i + 1)]))
+        out_a, out_b = A.pairlist_sweep_ref(*ops[:5], wi, wj, ops[5], *args)
+        got = A.pairlist_forces(out_a, out_b, wj)[:n]
+    assert bool(torch.isfinite(got).all())
+    want = allpairs_forces(st.positions, u, v, cfg)
+    assert want.abs().max() > 0
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
+                               atol=1e-4)

@@ -105,11 +105,14 @@ def test_column_sweep_ref_matches_jax_call(law, walled):
     t_ops = [torch.tensor(np.asarray(a)) for a in ops[:5]]
     got = TS.column_sweep_forces_ref(*t_ops, pack_params(from_jax_config(cfg)),
                                      cfg.force_law, bool(cfg.wrap_forces), NSC, 32)
-    occ = np.asarray(ops[5]) >= 0  # empty slots are garbage by design
+    # the JAX kernel leaves garbage on empty slots; the port returns 0 there
+    occ = np.asarray(ops[5]) >= 0
     g = _np(got).transpose(0, 2, 1)[occ]
     w_ = np.asarray(want).transpose(0, 2, 1)[occ]
     assert np.abs(w_).max() > 0
     _assert_forces_close(g, w_)
+    dead = _np(got).transpose(0, 2, 1)[~occ]
+    assert dead.size and (dead == 0.0).all()
 
 
 @pytest.mark.parametrize("cap", [32, 2])
@@ -184,3 +187,37 @@ def test_dense_forces_fresh_matches_jax():
     got = TD.dense_forces_fresh(tds.pos, tds, from_jax_config(cfg), NSC, 4)
     live = np.asarray(jds.r2) > 0
     _assert_forces_close(_np(got)[live], np.asarray(want)[live])
+
+
+def test_stale_receiver_row_is_zero_under_lennard_jones():
+    """An empty slot keeping a stale copy of a live particle 1e-6 from it:
+    as a receiver its Lennard-Jones sum would be infinite. K1's own gate
+    (-1 there) makes that row exactly 0, and every live row keeps its
+    value."""
+    from particle3d_tpu_torch.config import SimConfig
+
+    cfg = SimConfig(force_law="lennard_jones", lj_epsilon=0.2, lj_sigma=0.15,
+                    particle_effect_radius=0.5, world_size=8.0,
+                    neighbor="celllist_pallas", cell_grid=8,
+                    cell_capacity=16).validate()
+    rng = np.random.default_rng(4)
+    lin = (np.arange(8) - 3.5) * 0.45
+    g = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+    pos = (g + rng.normal(0, 0.02, g.shape)).astype(np.float32)
+    n = pos.shape[0]
+    st = from_numpy(pos, np.zeros((n, 3), np.float32), np.zeros(n, np.int32),
+                    device="cpu")
+    ds = TD.build_dense(st, cfg, 8, 16)
+    before = TD.dense_forces_fresh(ds.pos, ds, cfg, 8, 16)
+    live = int(torch.nonzero(ds.pid >= 0)[0, 0])
+    cell = live // 16
+    empty = int(torch.nonzero(ds.pid[cell * 16:(cell + 1) * 16] < 0)[0, 0]
+                + cell * 16)
+    data = ds.data.clone()
+    data[empty] = data[live]
+    data[empty, :3] += 1e-6
+    ds = ds.replace(data=data)
+    f = TD.dense_forces_fresh(ds.pos, ds, cfg, 8, 16)
+    assert bool(torch.isfinite(f).all())
+    assert (f[ds.r2 <= 0.0] == 0.0).all() and (f[empty] == 0.0).all()
+    assert torch.equal(f[ds.r2 > 0.0], before[ds.r2 > 0.0])

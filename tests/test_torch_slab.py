@@ -129,6 +129,9 @@ def test_halo_ref_matches_jax_call(walled, shape, wide):
     w_ = np.asarray(want).transpose(0, 2, 1)[live]
     assert np.abs(w_).max() > 0
     _close(_np(got).transpose(0, 2, 1)[live], w_)
+    # the JAX kernel leaves garbage on dead slots; the port returns 0 there
+    dead = _np(got).transpose(0, 2, 1)[~live]
+    assert dead.size and (dead == 0.0).all()
 
 
 @pytest.mark.parametrize("walled", [False, True])
