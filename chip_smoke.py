@@ -22,7 +22,8 @@ exits non-zero:
      empty (whole empty columns), and a lattice that fills every supercell
      exactly to cap 8; every K1 comparison in this script also requires
      exactly 0 on the dead receiver rows (own gate <= 0), and the idle-lane
-     share of K1's sweep loop on the 262k layout is printed;
+     share of K1's sweep loop on the 262k layout is printed (a model from
+     the layout's occupancy and the library's launch geometry);
   4. main path: a 16-step simulate_dense window at N=262,144 (no masked
      rows, one K1 launch per step, finite state), its step-0 forces on
      4,096 particles against a plain all-pairs sweep over all sources, a
@@ -74,7 +75,7 @@ exits non-zero:
      grid 44, cap 64) runs: init_sharded_dense, 10 warm steps, 10 timed
      steps (masked + limbo 0, lost 0), ms/step, carry bytes, peak device
      memory, host synchronisations per step, and K1 halo's time per launch
-     at 8M against its plain version, with its idle-lane share;
+     at 8M against its plain version, with its modelled idle-lane share;
  15. K5 against its plain version: the four laws of phase 8 at N=32,768
      (periodic, with ghost images) and particle life walled (no ghosts),
      N=12,345 (a ragged last tile), 12 species (feature width 16); fast
@@ -335,35 +336,30 @@ def k1_pairs(r2, nsc, cap):
     return float((occ * nbr).sum() - occ.sum())
 
 
-# K1's block geometry (csrc/celllist_sweep.cu): receiver slots aimed at per
-# block, supercells a block at most, receivers a thread, resident blocks an
-# SM at feature width 8
-K1_SLOTS_TARGET, K1_ZR_MAX, K1_R, K1_BLOCKS_PER_SM = 448, 64, 2, 7
-
-
-def k1_idle_lane_share(live, nsc, cap, sms):
+def k1_idle_lane_share(live, nsc, cap, p=8):
     """Share of K1's sweep-loop lane slots that evaluate no live pair on a
-    periodic layout with own gates ``live`` [nsc^2, nsc*cap] (cap <= 512,
-    feature width 8, ``sms`` SMs): blocks of zr supercells, R receivers of
-    one supercell a thread, and each warp runs a neighbour window as long
-    as its longest lane, so a lane is idle on a second receiver its
-    supercell lacks and while its neighbours finish longer windows (stage
-    splits are not counted)."""
+    periodic layout with own gates ``live`` [nsc^2, nsc*cap] and feature
+    width ``p``: a model computed from this run's occupancy and the block
+    geometry the library reports (``launch_geometry``), not a count taken
+    on the device. Blocks of zr supercells, R receivers of one supercell a
+    thread, and each warp runs a neighbour window as long as its longest
+    lane, so a lane is idle on a second receiver its supercell lacks and
+    while its neighbours finish longer windows (stage splits are not
+    counted)."""
     import torch.nn.functional as tnf
+    from particle3d_tpu_torch.ops.celllist_sweep import launch_geometry
 
     ncol = nsc * nsc
+    geo = launch_geometry(nsc, cap, ncol, p)
+    if geo["nsub"] != 1:
+        raise ValueError(f"idle-lane model: cap {cap} splits supercells")
+    zr, nzb, rpt = geo["zr"], geo["nzb"], geo["receivers_per_thread"]
     occ = live.reshape(nsc, nsc, nsc, cap).sum(-1)            # [x, y, z]
     zwin = occ + occ.roll(1, 2) + occ.roll(-1, 2)
     win = torch.stack([zwin.roll((-dx, -dy), (0, 1)) for dx in (-1, 0, 1)
                        for dy in (-1, 0, 1)], 2).reshape(ncol, 9, nsc)
-    zr_max = min(K1_ZR_MAX, max(1, K1_SLOTS_TARGET // cap))
-    nblk = -(-nsc // zr_max)
-    while nblk < nsc and 2 * ncol * nblk < 3 * sms * K1_BLOCKS_PER_SM:
-        nblk += 1
-    zr = -(-nsc // nblk)
-    nzb = -(-nsc // zr)
     occ_c = occ.reshape(ncol, nsc)
-    t = (occ_c + K1_R - 1) // K1_R                            # tasks
+    t = (occ_c + rpt - 1) // rpt                              # tasks
     tb = tnf.pad(t, (0, nzb * zr - nsc)).reshape(ncol, nzb, zr)
     start = (tb.cumsum(-1) - tb).reshape(ncol, -1)[:, :nsc].reshape(-1)
     block = (torch.arange(ncol, device=live.device)[:, None] * nzb
@@ -373,13 +369,14 @@ def k1_idle_lane_share(live, nsc, cap, sms):
                                  tf)
     first = tf.cumsum(0) - tf
     local = start[sc] + torch.arange(sc.shape[0], device=live.device) - first[sc]
-    key = block[sc] * 64 + local // 32                        # the warp
+    warps = -(-int(tb.sum(-1).max()) // 32)                   # per block, all passes
+    key = block[sc] * warps + local // 32                     # the warp
     w = win.permute(0, 2, 1).reshape(ncol * nsc, 9)[sc]
     mx = torch.zeros((int(key.max()) + 1, 9), dtype=w.dtype,
                      device=live.device).scatter_reduce_(
         0, key[:, None].expand(-1, 9), w, "amax")
     useful = (occ_c * win.sum(1)).sum().item()
-    return 1.0 - useful / (32 * K1_R * mx.sum().item())
+    return 1.0 - useful / (32 * rpt * mx.sum().item())
 
 
 def _dead_rows_zero(label, got, live):
@@ -414,9 +411,9 @@ def _sweep_case(label, state, cfg, reps, idle_share=False):
     err = compare(label, pick(got), pick(want))
     _dead_rows_zero(label, got, live)
     if idle_share:
-        sms = torch.cuda.get_device_properties(live.device).multi_processor_count
-        log(f"  {label}: idle-lane share of K1's sweep loop "
-            f"{k1_idle_lane_share(live, nsc, cap, sms):.4f}")
+        log(f"  {label}: idle-lane share of K1's sweep loop (model from "
+            f"the occupancy and the launch geometry) "
+            f"{k1_idle_lane_share(live, nsc, cap):.4f}")
     return err, ms, plain_ms, b
 
 
@@ -1271,9 +1268,9 @@ def _slab_run(name, kernel_row=False):
         pick = lambda f: f.permute(0, 2, 1)[live]  # noqa: E731
         err = compare(f"K1 halo at {name}", pick(got), pick(want))
         _dead_rows_zero(f"K1 halo at {name}", got, live)
-        sms = torch.cuda.get_device_properties(live.device).multi_processor_count
         log(f"  K1 halo at {name}: idle-lane share of K1's sweep loop "
-            f"{k1_idle_lane_share(live, kw['nsc'], kw['cap'], sms):.4f}")
+            f"(model from the occupancy and the launch geometry) "
+            f"{k1_idle_lane_share(live, kw['nsc'], kw['cap']):.4f}")
         del want
         # particle life's unpadded features: one column per species
         b = bound(k1_pairs(r2c.reshape(-1), kw["nsc"], kw["cap"])

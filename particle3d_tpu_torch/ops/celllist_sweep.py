@@ -54,14 +54,33 @@ _LIB = ("celllist_sweep", ("celllist_sweep.cu", "pair_law.cuh"))
 _REF_MAX_ELEMS = 1 << 24
 
 
-def _library():
+def _library_handle():
     from ..utils.cuda_build import load_library
 
     lib = load_library(*_LIB)
+    lib.p3t_column_sweep_geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.p3t_column_sweep_geometry.restype = None
+    return lib
+
+
+def _library():
+    lib = _library_handle()
     fn = lib.p3t_column_sweep
     fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+def launch_geometry(nsc: int, cap: int, ncol: int, p: int) -> dict:
+    """The block geometry K1 launches with on the current CUDA device (the
+    library's ``p3t_column_sweep_geometry``): receiver supercells a z-block
+    ``zr``, blocks a supercell ``nsub``, z-blocks a column ``nzb``, threads
+    a block and receivers a thread."""
+    lib = _library_handle()
+    out = (ctypes.c_int * 5)()
+    lib.p3t_column_sweep_geometry(nsc, cap, ncol, p, out)
+    return dict(zip(("zr", "nsub", "nzb", "threads", "receivers_per_thread"),
+                    out))
 
 
 def build_kernel():

@@ -40,10 +40,15 @@ inline cudaError_t cudaGetDevice(int* d) {
   *d = 0;
   return cudaSuccess;
 }
-// one SM: a kernel that cuts small grids finer by the resident block count
-// keeps its widest blocks here
+// The SM count the device reports: 1 unless a test sets another, so that a
+// kernel that cuts small grids finer by the resident block count keeps its
+// widest blocks unless asked
+inline int emu_sm_count = 1;
+extern "C" __attribute__((visibility("default"))) void emu_set_sm_count(int n) {
+  emu_sm_count = n;
+}
 inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  *v = 1;
+  *v = emu_sm_count;
   return cudaSuccess;
 }
 

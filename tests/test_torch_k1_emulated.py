@@ -8,8 +8,8 @@ the kernel's logic without a GPU: stages and their compaction, the packing
 of receivers onto lanes, passes, supercells split into pieces, the halo
 neighbour map, and exactly 0 on dead receiver rows. The arithmetic is the
 host's, so forces are compared at the tolerance of ``chip_smoke.py`` (the
-sums' order differs from the plain version's). Skipped where no g++ is
-installed.
+sums' order differs from the plain version's). Skipped where no g++ with
+C++20's ``<barrier>`` is installed.
 """
 
 import ctypes
@@ -36,11 +36,20 @@ EMULATION = Path(__file__).parent / "_cuda_emulation"
 
 
 @pytest.fixture(scope="module")
-def k1(tmp_path_factory):
+def k1_lib(tmp_path_factory):
+    """K1's source built for the CPU: the library with the kernel's entry
+    points and the emulation's ``emu_set_sm_count``."""
     gxx = shutil.which("g++")
     if gxx is None:
         pytest.skip("no g++: K1's CPU emulation needs a C++20 compiler")
     d = tmp_path_factory.mktemp("k1_emulated")
+    (d / "probe.cpp").write_text("#include <barrier>\nint main() { "
+                                 "std::barrier<> b(1); b.arrive_and_wait(); }\n")
+    probe = subprocess.run([gxx, "-std=c++20", "-pthread", "-o",
+                            str(d / "probe"), str(d / "probe.cpp")],
+                           capture_output=True, text=True)
+    if probe.returncode != 0:
+        pytest.skip(f"g++ lacks C++20's <barrier>: {probe.stderr[-300:]}")
     src, n = re.subn(r"(column_sweep_kernel<[^>]*>)<<<(\w+), (\w+), 0, stream>>>\(",
                      r"emu_launch(\2, \3, \1, ", (CSRC / "celllist_sweep.cu").read_text())
     assert n == 1, "the kernel launch was not found"
@@ -50,10 +59,26 @@ def k1(tmp_path_factory):
                     "-ffp-contract=off", f"-I{EMULATION}", "-o",
                     str(d / "k1.so"), str(d / "celllist_sweep.cpp")],
                    check=True, capture_output=True)
-    fn = ctypes.CDLL(str(d / "k1.so")).p3t_column_sweep
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = ctypes.CDLL(str(d / "k1.so"))
+    lib.p3t_column_sweep.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+                                     + [ctypes.c_void_p])
+    lib.p3t_column_sweep.restype = ctypes.c_int
+    lib.p3t_column_sweep_geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    lib.p3t_column_sweep_geometry.restype = None
+    lib.emu_set_sm_count.argtypes = [ctypes.c_int]
+    lib.emu_set_sm_count.restype = None
+    return lib
+
+
+@pytest.fixture(scope="module")
+def k1(k1_lib):
+    return k1_lib.p3t_column_sweep
+
+
+def _geometry(lib, nsc, cap, ncol, p):
+    out = (ctypes.c_int * 5)()
+    lib.p3t_column_sweep_geometry(nsc, cap, ncol, p, out)
+    return tuple(out)[:3]  # zr, nsub, nzb
 
 
 def _run(fn, ops, cfg, nsc, cap, halo):
@@ -105,6 +130,22 @@ def test_grid_mode_matches_plain(k1, walled, cap, n, w, nsc):
     if walled:
         cfg = cfg.replace(boundary="clamp", wrap_forces=False)
     _check(k1, _grid_ops(_scene(n, w, 2), cfg, nsc, cap), cfg, nsc, cap)
+
+
+def test_grid_split_for_a_short_wave_matches_plain(k1_lib):
+    """On 8 SMs (56 resident blocks) a 9^3 grid's 81 columns of one z-block
+    each would fill under 1.5 waves, so the launcher splits each column into
+    z-blocks of 5 and 4 supercells; on 1 SM it keeps one block a column."""
+    nsc, cap, w = 9, 32, 18.0
+    cfg = reference_config(world_size=w)
+    ops = _grid_ops(_scene(5000, w, 4), cfg, nsc, cap)
+    assert _geometry(k1_lib, nsc, cap, nsc * nsc, 8) == (9, 1, 1)
+    k1_lib.emu_set_sm_count(8)
+    try:
+        assert _geometry(k1_lib, nsc, cap, nsc * nsc, 8) == (5, 1, 2)
+        _check(k1_lib.p3t_column_sweep, ops, cfg, nsc, cap)
+    finally:
+        k1_lib.emu_set_sm_count(1)
 
 
 def test_stale_receiver_row_under_lennard_jones_is_zero(k1):
