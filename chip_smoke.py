@@ -38,8 +38,9 @@ exits non-zero:
   8. K2 against its plain version at N=32,768 (particle life periodic and
      walled, gravity with random masses, spring, Lennard-Jones on a
      jittered lattice), at N=12,345 (97 tiles: odd count, ragged last
-     tile) and at N=262,144 (whole, and on 4,096 sampled receivers against
-     the plain rectangular sweep), then its mask mode against dense K2 on
+     tile) and at N=262,144 (whole, run twice on the same operands for
+     bit-identical outputs, and on 4,096 sampled receivers against the
+     plain rectangular sweep), then its mask mode against dense K2 on
      a clustered N=32,768 scene, and a scene with padded rows at the
      origin and a real particle 1e-4 from them under Lennard-Jones (N=300:
      finite, and equal to plain all-pairs);
@@ -49,10 +50,12 @@ exits non-zero:
      worklist (the padded tile as a receiver);
  10. the all-pairs paths: `run --preset particle_life_large_allpairs
      --steps 4` (4 K2 launches), two steps of it rerun bit-identically, the
-     flagship step (reference scene, N=4,096) against plain all-pairs,
+     flagship step (reference scene, N=4,096) against plain all-pairs and
+     its ms/step,
      particle_life_large at N=1,536 (K3), verlet_elastic and gravity_nbody,
-     and simulate_culled on particle_life_large (16 steps, one K4 launch a
-     step, a bit-identical rerun);
+     2 steps of simulate on particle_life_large with the allpairs_culled
+     backend (K2 in mask mode), and simulate_culled on particle_life_large
+     (16 steps, one K4 launch a step, a bit-identical rerun);
  11. the capacity ladder's terminal rung: simulate_dense_adaptive at
      N=262,144 with a dense blob, no sidecar and max_cap 64 falls back to
      the culled rung;
@@ -82,8 +85,9 @@ exits non-zero:
      mode against a direct all-pairs sweep on the JAX test's N=200 scenes
      (world 10, periodic and walled) and at N=32,768 in a world of 20; then
      the particle_life_large_allpairs scene at N=262,144 with its 66,432
-     ghost rows, timed against the plain version, and fast mode there
-     (its error printed, not gated);
+     ghost rows, timed against the plain version and run twice for
+     bit-identical outputs, and fast mode there (its error printed, not
+     gated);
  16. the K5 path at full width: 4 steps of simulate on that scene with
      neighbor="allpairs_mxu" (4 K5 launches, finite state, ms/step, peak
      device memory), two steps rerun bit-identically, its step-0 forces
@@ -114,10 +118,13 @@ The second-to-last line is a JSON record of each kernel (K1 and its halo
 mode are separate entries): launches on the path that drives it (each
 path runs with every count set to 0 just before it; K1 halo's is the 8M
 timed window), error against the plain version, its time and the plain
-version's at the stated shape, and the bound (the larger of the operations over 67
-TFLOP/s FP32 and the bytes over 3.35 TB/s; operations are counted per
-pair on the unpadded feature width, see `ops_one_sided` and `ops_mxu`;
-K5's pairs are those of its own rows, reals and ghost slots). The last line is
+version's at the stated shape, and the bound: the larger of the operations
+over their peak rates (the rank-1 coefficients, and K5 fast mode's Gram
+product, at 495 TFLOP/s TF32, the rest at 67 TFLOP/s FP32; counted per pair
+on the unpadded feature width, particle3d_tpu_torch/utils/bounds.py) and
+the bytes over 3.35 TB/s; K5's pairs are those of its live rows, reals and
+the ghosts in use. Each bound is also printed with every operation at the
+FP32 rate, as the port counted before its tensor-core kernels. The last line is
 {"ok": true, "device": {...}}. Without CUDA it exits non-zero and prints
 no result.
 """
@@ -133,6 +140,9 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 import torch
+
+from particle3d_tpu_torch.utils.bounds import (bound, ops_mxu, ops_one_sided,
+                                               ops_two_sided)
 
 DEVICE = "cuda"
 TOL_REL_L2 = 1e-5
@@ -159,9 +169,6 @@ N_RAGGED_RECT = 1000
 N_FLAGSHIP = 4096
 N_BLOB = 2000     # particles packed into one cell for the terminal rung
 SLAB_STEPS = 10   # warm and timed windows of the full-width slab runs
-# H100 SXM peaks: FP32 outside the tensor cores, and device memory
-PEAK_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
 
 
 def log(msg):
@@ -274,48 +281,13 @@ def _ptxas_summary(build_log):
     return out
 
 
-def bound(ops, nbytes):
-    """(least ms the card could take, "operations" or "bytes")."""
-    t_ops, t_bytes = ops / PEAK_FLOPS, nbytes / PEAK_BYTES
-    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes
-                                       else "bytes")
-
-
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
-# FP32 operations the particle-life force function needs per pair, for the
-# P feature columns of U and V before the kernels' zero padding
-# (`feature_width`). An FMA counts two; any other operation (add, multiply,
-# compare, select, min/max, abs, rint, square root, division) one.
-# One-sided (K1, K3), per ordered pair: deltas 3, d^2 5 (a multiply and two
-# FMAs), gate and clamp 3, coefficient U.V 2P, law 12 (sqrt, division,
-# repulsion, the triangle's FMA 2, abs, 1 - x, max, 1/d, coefficient,
-# branch compare and select), sums 6; plus 12 for K3's world-unit wrap (per
-# axis a multiply by 1/w, rint and an FMA). Two-sided (K2, K4), per
-# unordered pair: deltas 3, d^2 5, two gates 2, park 1, law parts 10, two
-# coefficients 4P, two directional scales 4, the i-side sums 6 and the
-# j-side products and sums 6; plus 7 for the box-unit wrap (rint and a
-# subtraction per axis) and the d^2 restore. The padded columns and the
-# padded-row mask are artefacts of the kernels' layout and are not counted.
-def ops_one_sided(p, wrap):
-    return 29 + 2 * p + (12 if wrap else 0)
-
-
-def ops_two_sided(p, wrap):
-    return 37 + 4 * p + (7 if wrap else 0)
-
-
-# K5, per unordered pair: K2's count without the wrap (no wrap, no d^2
-# restore), plus the fourth sum of each side (the ones column): the i-side
-# four FMAs 8, the j-side four products and four sums 8; 41 + 4P. Fast
-# mode replaces deltas 3 and d^2 5 by the Gram form: a multiply and three
-# FMAs 7, |p_i|^2 + |p_j|^2 1, 2 - 2 g an FMA 2, the sum 1 and the clamp
-# 1; 45 + 4P. The index-diagonal mask (k = 0 only) and the per-row
-# fix-ups and norms are not per pair and are not counted.
-def ops_mxu(p, fast):
-    return (45 if fast else 41) + 4 * p
+def bound_text(b):
+    return (f"bound {b[0]:.4f} ms ({b[1]}; with every operation at the FP32 "
+            f"rate {b[2]:.4f} ms)")
 
 
 def feature_width(state, cfg):
@@ -403,11 +375,10 @@ def _sweep_case(label, state, cfg, reps, idle_share=False):
     plain_ms, want = timed_ms(lambda: S.column_sweep_forces_ref(*ops, *args), 2)
     live = (ds.r2 > 0).reshape(nsc * nsc, nsc * cap)  # occupied, aligned
     pick = lambda f: f.permute(0, 2, 1)[live]  # noqa: E731
-    b = bound(k1_pairs(ds.r2, nsc, cap) * ops_one_sided(feature_width(state, cfg),
-                                                        False),
-              nbytes(*ops, got))
+    b = bound(k1_pairs(ds.r2, nsc, cap),
+              ops_one_sided(feature_width(state, cfg), False), nbytes(*ops, got))
     log(f"  {label}: {int(live.sum())} receivers, K1 {ms:.3f} ms, "
-        f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]})")
+        f"plain {plain_ms:.3f} ms, {bound_text(b)}")
     err = compare(label, pick(got), pick(want))
     _dead_rows_zero(label, got, live)
     if idle_share:
@@ -652,10 +623,9 @@ def phase_rect():
     ops = A.rect_operands(st.positions[idx], u[idx], st.positions, v, cfg)
     ms, got = timed_ms(lambda: A.rect_sweep(*ops), 10)
     plain_ms, want = timed_ms(lambda: A.rect_sweep_ref(*ops), 2)
-    b = bound(N_SAMPLE * N_LARGE * ops_one_sided(u.shape[1], True),
+    b = bound(N_SAMPLE * N_LARGE, ops_one_sided(u.shape[1], True),
               nbytes(*ops[:5], got))
-    log(f"  K3 {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
-        f"({b[1]})")
+    log(f"  K3 {ms:.3f} ms, plain {plain_ms:.3f} ms, {bound_text(b)}")
     err = compare(f"K3 {N_SAMPLE} x {N_LARGE}", got, want)
     gen = torch.Generator().manual_seed(4)
     scenes = [(n, *x) for n in (N_RECT,) for x in _law_scenes(n, gen)]
@@ -742,15 +712,17 @@ def phase_tri():
     args = (cfg.force_law, True, A.KERNEL_TILE)
     ms, (oa, ob) = timed_ms(lambda: A.tri_sweep(*ops, *args), 3)
     got = A.tri_forces(oa, ob)
-    b = bound(N_LARGE * (N_LARGE - 1) / 2 * ops_two_sided(u.shape[1], True),
+    b = bound(N_LARGE * (N_LARGE - 1) / 2, ops_two_sided(u.shape[1], True),
               nbytes(*ops[:5], oa, ob))
-    del oa, ob
+    oa2, ob2 = A.tri_sweep(*ops, *args)
+    _bit_identical(f"K2 N={N_LARGE} rerun", (oa, ob), (oa2, ob2))
+    del oa, ob, oa2, ob2
     plain_ms, (pa, pb) = timed_ms(lambda: A.tri_sweep_ref(*ops, *args), 1,
                                   warm=False)
     want = A.tri_forces(pa, pb)
     del pa, pb
-    log(f"  K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms "
-        f"({b[1]}); out_b {ops[0].shape[0] // A.KERNEL_TILE // 2 + 1} x 3 x "
+    log(f"  K2 {ms:.3f} ms, plain {plain_ms:.3f} ms, {bound_text(b)}; out_b "
+        f"{ops[0].shape[0] // A.KERNEL_TILE // 2 + 1} x 3 x "
         f"{ops[0].shape[0]} floats")
     err = compare(f"K2 N={N_LARGE}", got, want)
     idx = _sample(N_LARGE, N_SAMPLE, 6)
@@ -838,12 +810,12 @@ def phase_pairlist():
     u, v = F.pair_features(st, cfg)
     nt = N_LARGE // t  # one self entry per tile: t (t - 1) / 2 pairs each
     pairs = (count - nt) * t * t + nt * t * (t - 1) / 2
-    b = bound(pairs * ops_two_sided(u.shape[1], True),
+    b = bound(pairs, ops_two_sided(u.shape[1], True),
               nbytes(*args[:7], oa, ob))
     plain_ms, (pa, pb) = timed_ms(lambda: A.pairlist_sweep_ref(*args), 1)
     log(f"  K4 {ms:.3f} ms over {count} tile pairs (of "
         f"{(N_LARGE // t) * (N_LARGE // t + 1) // 2}), plain {plain_ms:.3f} "
-        f"ms, bound {b[0]:.4f} ms ({b[1]})")
+        f"ms, {bound_text(b)}")
     err = compare(f"K4 N={N_LARGE} vs its plain version", got,
                   A.pairlist_forces(pa, pb, wj))
     del pa, pb
@@ -869,6 +841,13 @@ def phase_pairlist():
             A.pairlist_forces(*A.pairlist_sweep_ref(*pargs), wj)[:ps.n])
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound": b,
             "shape": f"N={N_LARGE}, {count} surviving tile pairs of {t}"}
+
+
+def _bit_identical(label, first, second):
+    """Fail unless two runs on the same operands gave the same bits."""
+    if not all(torch.equal(a, b) for a, b in zip(first, second)):
+        raise AssertionError(f"{label}: not bit-identical")
+    log(f"  {label}: bit-identical")
 
 
 def _finite(label, state):
@@ -929,6 +908,8 @@ def phase_allpairs_paths():
     ref = step(st, cfg.replace(neighbor="allpairs"), dt)
     compare("flagship step velocities vs plain all-pairs", out.velocities,
             ref.velocities)
+    ms, _ = timed_ms(lambda: step(st, cfg, dt), 20)
+    log(f"  flagship step: {ms:.3f} ms/step (CUDA events, mean of 20)")
 
     st, cfg, dt = make_scene("particle_life_large", seed=0, n=N_RECT,
                              device=DEVICE)
@@ -951,6 +932,15 @@ def phase_allpairs_paths():
         log(f"  {preset}: {ms / steps:.3f} ms/step (CUDA events)")
 
     st, cfg, dt = make_scene("particle_life_large", seed=0, device=DEVICE)
+    culled = cfg.replace(neighbor="allpairs_culled")
+    sync()
+    reset_kernel_launches()
+    ms, out = timed_ms(lambda: simulate(st, culled, dt, 2), 1, warm=False)
+    _expect(f"simulate(allpairs_culled) N={st.n}, 2 steps", kernel_launches(),
+            {"allpairs_tri": 2})
+    _finite("simulate allpairs_culled", out)
+    log(f"  simulate(allpairs_culled) (K2 in mask mode): {ms / 2:.3f} ms/step "
+        f"(CUDA events, 2 steps incl. the Morton sort and the mask)")
     sync()
     reset_kernel_launches()
     out, stats = simulate_culled(st, cfg, dt, STEPS)
@@ -1273,10 +1263,10 @@ def _slab_run(name, kernel_row=False):
             f"{k1_idle_lane_share(live, kw['nsc'], kw['cap']):.4f}")
         del want
         # particle life's unpadded features: one column per species
-        b = bound(k1_pairs(r2c.reshape(-1), kw["nsc"], kw["cap"])
-                  * ops_one_sided(int(cfg.id_count), False), nbytes(*ops, got))
-        log(f"  K1 halo {k_ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-            f"{b[0]:.4f} ms ({b[1]})")
+        b = bound(k1_pairs(r2c.reshape(-1), kw["nsc"], kw["cap"]),
+                  ops_one_sided(int(cfg.id_count), False), nbytes(*ops, got))
+        log(f"  K1 halo {k_ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            f"{bound_text(b)}")
         rec.update(max_abs_err=err, ms=k_ms, plain_ms=plain_ms, bound=b,
                    shape=f"N={n}, grid {kw['nsc']}, cap {kw['cap']}, one rank "
                          f"({ops[0].shape[0]} receiver columns)")
@@ -1380,20 +1370,24 @@ def phase_mxu():
     ops = M.mxu_operands(st.positions, u, v, cfg, gcap, M.KERNEL_TILE)
     args = (cfg.force_law, False, M.KERNEL_TILE)
     mp = ops[0].shape[0]
-    m = N_LARGE + gcap
+    # the live rows: reals and the ghosts in use (the rest are dead tiles'
+    # or invalid rows' parked pairs)
+    m = N_LARGE + int(M.ghost_count(st.positions, cfg))
     ms, (oa, ob) = timed_ms(lambda: M.mxu_sweep(*ops, *args), 3)
     got = M.tri_forces(oa, ob)[:N_LARGE]
     p = u.shape[1]
-    b = bound(m * (m - 1) / 2 * ops_mxu(p, False), nbytes(*ops[:5], oa, ob))
-    b_k2 = bound(N_LARGE * (N_LARGE - 1) / 2 * ops_two_sided(p, True), 0)
-    del oa, ob
+    b = bound(m * (m - 1) / 2, ops_mxu(p, False), nbytes(*ops[:5], oa, ob))
+    b_k2 = bound(N_LARGE * (N_LARGE - 1) / 2, ops_two_sided(p, True), 0)
+    oa2, ob2 = M.mxu_sweep(*ops, *args)
+    _bit_identical(f"K5 N={N_LARGE} + ghosts rerun", (oa, ob), (oa2, ob2))
+    del oa, ob, oa2, ob2
     plain_ms, (pa, pb) = timed_ms(lambda: M.mxu_sweep_ref(*ops, *args), 1,
                                   warm=False)
     want = M.tri_forces(pa, pb)[:N_LARGE]
     del pa, pb
-    log(f"  K5 {ms:.3f} ms over M={m} rows ({mp // M.KERNEL_TILE} tiles), "
-        f"plain {plain_ms:.3f} ms, bound {b[0]:.4f} ms ({b[1]}); K2's bound "
-        f"on the same scene {b_k2[0]:.4f} ms; out_b "
+    log(f"  K5 {ms:.3f} ms over {mp} rows, {m} live ({mp // M.KERNEL_TILE} "
+        f"tiles), plain {plain_ms:.3f} ms, {bound_text(b)}; K2's on the same "
+        f"scene {bound_text(b_k2)}; out_b "
         f"{mp // M.KERNEL_TILE // 2 + 1} x 3 x {mp} floats")
     err = compare(f"K5 N={N_LARGE} + {gcap} ghost rows vs its plain version",
                   got, want, **k5)

@@ -32,11 +32,12 @@
 //
 // What bounds them. Five-species particle life needs ~50 FP32 operations a
 // pair one-sided (K3) and ~64 for both directions of an unordered pair (K2,
-// K4; the counts are in chip_smoke.py's `ops_one_sided`) against a few bytes
-// of operands per particle: all three are bound by FP32 issue, not by device
-// memory (K2 at N = 262,144 does 3.4e10 unordered pairs; its operands are
-// ~20 MB, its j-side partials out_b ~3.2 GB at TILE = 128). The designs
-// keep every operand a pair reads in registers or shared memory:
+// K4; the counts are in utils/bounds.py), 2P and 4P of them the rank-1
+// coefficients, against a few bytes of operands per particle: all three
+// are bound by arithmetic throughput, not by device memory (K2 at
+// N = 262,144 does 3.4e10 unordered pairs; its operands are ~20 MB, its
+// j-side partials out_b ~3.2 GB at TILE = 128). The designs keep every
+// operand a pair reads in registers or shared memory:
 //
 //   K3: the classic tiled N-body shape. One thread per receiver (128 a
 //       block) holds its position, U and its sum in registers; source
@@ -45,31 +46,32 @@
 //       that a few receivers still fill the card; each span writes its own
 //       partial sum (no atomics).
 //   K2: one block per receiver tile i and k-span, looping over k inside the
-//       block in place of the TPU's sequential grid axis. Each of the 128
-//       threads owns one receiver row: the i-side sums stay in registers
-//       across the k loop. The source tile is staged in shared memory and
-//       each warp walks it column by column (broadcast reads). The j-side
-//       sum of a column runs over the receiver rows, which live in different
-//       lanes: columns are taken 8 at a time and reduced across the warp by
-//       recursive halving plus a butterfly (9 shuffles a component for 8
-//       columns), then across the 4 warps in shared memory in a fixed order.
-//       Each (k, j) block of out_b is written exactly once; the k-sum is a
-//       fixed-order torch reduction outside. No float atomics anywhere: a
-//       rerun is bit-identical.
-//   K4: the same tile-pair body; one block per receiver tile walks that
-//       tile's run of worklist entries (found from row_start) and writes
-//       each entry's j-side once into out_b[s].
+//       block in place of the TPU's sequential grid axis, on the tile-pair
+//       sweep it shares with K5 (tile_pair_mma.cuh): coefficient tiles on
+//       tensor cores in 3xTF32, each lane evaluating the pairs of its
+//       accumulator fragment, the i-side reduced over lanes once a k-span
+//       and the j-side once per column of the warp's rows, then across
+//       warps in shared memory in a fixed order. Each (k, j) block of out_b
+//       is written exactly once; the k-sum is a fixed-order torch reduction
+//       outside. No float atomics anywhere: a rerun is bit-identical.
+//   K4: one block per receiver tile walks that tile's run of worklist
+//       entries (found from row_start) and writes each entry's j-side once
+//       into out_b[s], on the earlier body `tile_pair` below: each of the 128
+//       threads owns one receiver row, walks the staged source tile column
+//       by column (broadcast reads) with FP32 dot products, and reduces the
+//       j-side 8 columns at a time across the warp (9 shuffles a component),
+//       then across the 4 warps in shared memory.
 //
 // Double-count guards, exactly as in `_tri_body`: the k = 0 diagonal (and
 // K4's self entries j == i) is one-sided, its j-side written as 0; for even
 // nt the k = nt/2 step is skipped for i >= nt/2 on both sides; padded
-// receiver rows are masked out of the j-side by imask. In mask mode a
+// receiver rows are selected out of the j-side by imask. In mask mode a
 // skipped (i, k) step writes zeros to its out_b block and k = 0 always runs.
 #include <cuda_runtime.h>
 
 #include <cstddef>
 
-#include "tile_sweep.cuh"
+#include "tile_pair_mma.cuh"
 
 namespace {
 
@@ -141,7 +143,21 @@ rect_kernel(const float* __restrict__ pos, const float* __restrict__ u,
   }
 }
 
-// ----------------------------------------------------------- K2 and K4
+// -------------------------------------------------------------- K2
+
+template <int LAW, bool WRAP, int PP>
+__global__ void __launch_bounds__(TILE)
+tri_kernel(const float* __restrict__ pos, const float* __restrict__ u,
+           const float* __restrict__ v, const float* __restrict__ r2row,
+           const float* __restrict__ imask, const int* __restrict__ mask,
+           const int nkw, const int nt, const int kspan,
+           float* __restrict__ out_a_part, float* __restrict__ out_b,
+           const PairParams pf) {
+  tri_sweep_block<LAW, WRAP ? K2_WRAP : K2_WALLS, PP>(
+      pos, u, v, r2row, imask, mask, nkw, nt, kspan, out_a_part, out_b, pf);
+}
+
+// -------------------------------------------------------------- K4
 
 template <int PP>
 struct TileSmem {
@@ -258,48 +274,6 @@ __device__ __forceinline__ void tile_pair(
   ob[a] = bx;
   ob[cstride + a] = by;
   ob[2 * cstride + a] = bz;
-}
-
-template <int LAW, bool WRAP, int PP>
-__global__ void __launch_bounds__(TILE)
-tri_kernel(const float* __restrict__ pos, const float* __restrict__ u,
-           const float* __restrict__ v, const float* __restrict__ r2row,
-           const float* __restrict__ imask, const int* __restrict__ mask,
-           const int nkw, const int nt, const int kspan,
-           float* __restrict__ out_a_part, float* __restrict__ out_b,
-           const PairParams pf) {
-  __shared__ TileSmem<PP> sm;
-  const int i = blockIdx.x;
-  const int a = threadIdx.x;
-  const size_t np = static_cast<size_t>(nt) * TILE;
-  const size_t row = static_cast<size_t>(i) * TILE + a;
-  const Row<PP> r = load_row<PP>(pos, u, v, imask, row);
-  const int nk = nt / 2 + 1;
-  const int k0 = blockIdx.y * kspan;
-  const int k1 = min(nk, k0 + kspan);
-  float ax = 0.0f, ay = 0.0f, az = 0.0f;
-
-  for (int k = k0; k < k1; ++k) {  // block-uniform control flow throughout
-    const int j = (i + k) % nt;
-    float* ob = out_b + static_cast<size_t>(k) * 3 * np + static_cast<size_t>(j) * TILE;
-    bool run = !(2 * k == nt && 2 * i >= nt);  // even nt: half diagonal once
-    if (mask != nullptr && k > 0) {
-      run = run && ((mask[static_cast<size_t>(i) * nkw + (k >> 5)] >> (k & 31)) & 1);
-    }
-    if (!run) {
-      ob[a] = 0.0f;
-      ob[np + a] = 0.0f;
-      ob[2 * np + a] = 0.0f;
-      continue;
-    }
-    tile_pair<LAW, WRAP, PP>(sm, r, pos, u, v, r2row, j, k == 0, ax, ay, az,
-                             ob, np, pf);
-  }
-  const float sc = WRAP ? pf.v[p3t::PF_W] : 1.0f;
-  float* oa = out_a_part + (static_cast<size_t>(blockIdx.y) * np + row) * 3;
-  oa[0] = ax * sc;
-  oa[1] = ay * sc;
-  oa[2] = az * sc;
 }
 
 template <int LAW, bool WRAP, int PP>

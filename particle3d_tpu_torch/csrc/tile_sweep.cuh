@@ -1,8 +1,9 @@
-// Helpers shared by the triangular tile-pair kernels (K2 and K4 in
-// allpairs_sweep.cu, K5 in allpairs_mxu.cu) and their plain C launchers:
-// feature-vector loads and dot products in a fixed order, the warp's
-// fixed-order column sums of the j-side, and the compile-time dispatch over
-// (law, a boolean mode, feature width).
+// Helpers shared by the all-pairs kernels (allpairs_sweep.cu,
+// allpairs_mxu.cu, tile_pair_mma.cuh) and their plain C launchers: the tile
+// size, feature-vector loads, and the compile-time dispatch over (law, a
+// boolean mode, feature width); and, for K3 and K4's `tile_pair`, dot
+// products in a fixed order and the warp's fixed-order column sums of the
+// j-side.
 #pragma once
 
 #include <cuda_runtime.h>

@@ -18,6 +18,12 @@ direct form of K2 (``allpairs_sweep``). ``precision="fast"`` also forms
 d^2 = |p_i|^2 + |p_j|^2 - 2 p_i . p_j, whose cancellation leaves about
 |p|^2 * 2^-24 of noise in d^2: ~1e-3 relative on near-contact pairs.
 
+Tile pairs with a dead tile (every row's imask 0: the trailing invalid
+ghosts and the padding, which ``_build_ghosts`` compacts to the end) are
+skipped and their j-side blocks written as zeros, unlike the TPU kernel:
+rows < N then lack only the (near-)zero terms of particle life's parked
+pairs with invalid ghosts (``live_tiles``).
+
 The wrapper checks its operands and raises on what its kernel does not
 take. CPU tensors go to the plain version ``mxu_sweep_ref``, which runs the
 same (i, k) steps and guards and the same factored form in FP32, blocked;
@@ -58,7 +64,8 @@ _OFFSETS26 = np.array(
 
 KERNEL_LAUNCHES = {"allpairs_mxu": 0}
 
-_LIB = ("allpairs_mxu", ("allpairs_mxu.cu", "tile_sweep.cuh", "pair_law.cuh"))
+_LIB = ("allpairs_mxu", ("allpairs_mxu.cu", "tile_pair_mma.cuh",
+                         "tile_sweep.cuh", "pair_law.cuh"))
 
 
 def _library():
@@ -174,12 +181,19 @@ def _check_mxu(p4, u_p, v_p, r2row, imask, t: int):
     return mp, p, mp // t
 
 
+def live_tiles(imask, t: int):
+    """bool [nt]: the tiles of ``t`` rows that hold a row with imask > 0
+    (the kernel finds the same by a vote inside each block)."""
+    return (imask.reshape(-1, t) > 0).any(1)
+
+
 def mxu_sweep(p4, u_p, v_p, r2row, imask, params, law: str, fast: bool,
               t: int):
     """K5 over padded operands of mp = nt * t rows (``mxu_operands``).
     Returns ``(out_a f32[mp, 3], out_b f32[nk, 3, mp])``, nk = nt // 2 + 1:
     the fixed-up i-side sums, and the fixed-up j-side partial of step k
-    for tile (i + k) mod nt in ``out_b[k]``; the forces are
+    for tile (i + k) mod nt in ``out_b[k]`` (zeros where either tile is
+    dead, ``live_tiles``); the forces are
     ``allpairs_sweep.tri_forces(out_a, out_b)``."""
     mp, p, nt = _check_mxu(p4, u_p, v_p, r2row, imask, t)
     if p4.device.type == "cpu":
@@ -236,9 +250,9 @@ def _mxu_tile_pairs_ref(p4i, ui, vi, mi, p4j, uj, vj, r2j, params, law: str,
 
 def mxu_sweep_ref(p4, u_p, v_p, r2row, imask, params, law: str, fast: bool,
                   t: int):
-    """Plain K5: the same (i, k) steps and guards and the same factored
-    form in FP32, vectorised over blocks of receiver tiles; the i-side
-    sums are fixed up once at the end, as in the kernel."""
+    """Plain K5: the same (i, k) steps, guards and dead-tile skips and the
+    same factored form in FP32, vectorised over blocks of receiver tiles;
+    the i-side sums are fixed up once at the end, as in the kernel."""
     mp = p4.shape[0]
     nt = mp // t
     nk = nt // 2 + 1
@@ -249,9 +263,10 @@ def mxu_sweep_ref(p4, u_p, v_p, r2row, imask, params, law: str, fast: bool,
     out_b = torch.zeros((nk, 3, nt, t), dtype=torch.float32, device=dev)
     ids = torch.arange(nt, device=dev)
     eye = torch.eye(t, dtype=torch.bool, device=dev)
+    live = live_tiles(imask, t)
     blk = max(1, _REF_MAX_ELEMS // (t * t))
     for k in range(nk):
-        run = torch.ones(nt, dtype=torch.bool, device=dev)
+        run = live & live[(ids + k) % nt]
         if 2 * k == nt:  # even nt: the half diagonal once, from i < nt/2
             run[nt // 2:] = False
         for i0 in range(0, nt, blk):

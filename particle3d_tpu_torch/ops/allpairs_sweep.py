@@ -61,8 +61,8 @@ _REF_MAX_ELEMS = 1 << 24
 KERNEL_LAUNCHES = {"allpairs_rect": 0, "allpairs_tri": 0,
                    "allpairs_pairlist": 0}
 
-_LIB = ("allpairs_sweep", ("allpairs_sweep.cu", "tile_sweep.cuh",
-                           "pair_law.cuh"))
+_LIB = ("allpairs_sweep", ("allpairs_sweep.cu", "tile_pair_mma.cuh",
+                           "tile_sweep.cuh", "pair_law.cuh"))
 
 
 def _library():

@@ -10,22 +10,27 @@ port's nvcc flags into a temporary directory (registers and spills
 printed), and the case's wrapper is called once with the current build and
 once with the baseline's swapped in for its module's ``_library``: same
 wrapper, same operands. Calls are timed with CUDA events in turns
-(baseline, current, current, baseline), and the outputs compared bit for
-bit (K1: its live rows; its current dead rows must be exactly 0). One JSON
-line per case: ms of each build, the speed-up, equality, and for K1 the
-bound (live pairs times 29 + 2P FP32 operations over 67 TFLOP/s, P the
-unpadded feature width, as in ``chip_smoke.py``).
+(baseline, current, current, baseline). Outputs are compared bit for bit
+by default (K1: its live rows; its current dead rows must be exactly 0);
+a case whose builds differ in arithmetic (K2 and K5, redesigned on tensor
+cores) compares the forces instead, at ``chip_smoke.py``'s gates. A case
+that fails its comparison makes the run exit with 1. One JSON line per
+case: ms of each build, the speed-up, the comparison and, where the case
+has one, the bound (``utils/bounds.py``; also with every operation at the
+FP32 rate, the count before the tensor-core redesign).
 
 Cases (``CASES``): K1 at 262k (particle_life_large, grid 24, cap 32),
 262k cap 64, 1M (grid 40) and 8M in halo mode (the slab_8m carry on one
 rank, grid 68, cap 64); K2, K3 and K4 on N=32,768 scenes (particle life
-periodic and walled, Lennard-Jones on a jittered lattice), and K4 on the
-culled rung's worklist at 262k (Morton-sorted particle_life_large).
+periodic and walled, Lennard-Jones on a jittered lattice); K2 at 262k
+(particle_life_large_allpairs); K4 on the culled rung's worklist at 262k
+(Morton-sorted particle_life_large); K5 exact and fast on the 32k particle
+life scene and at 262k with its ghosts.
 
 ``--sass KERNEL`` (repeatable) prints, for each build of each case's
 library and each kernel whose mangled name contains ``KERNEL``, the
-instruction classes of its innermost loops that hold a MUFU (the pair
-loops), from ``cuobjdump -sass``. Runs on the card only.
+instruction classes of its innermost loops that hold a MUFU or an HMMA
+(the pair loops), from ``cuobjdump -sass``. Runs on the card only.
 """
 
 from __future__ import annotations
@@ -44,18 +49,26 @@ from typing import Callable
 import numpy as np
 import torch
 
-PEAK_FLOPS = 67e12  # H100 SXM FP32 outside the tensor cores
+from .bounds import bound, ops_mxu, ops_one_sided, ops_two_sided
+
+# chip_smoke.py's gates for builds whose arithmetic differs: (relative L2,
+# max abs as a share of max|F|), None for no gate
+K2_GATE = (1e-5, 1e-4)
+K5_GATE = (3e-5, 1e-4)
+K5_FAST_GATE = (1e-3, None)
 
 
 @dataclass
 class Case:
     """One wrapper call: ``run()`` returns its output (a tensor or a
     tuple); ``pick`` the tensors to compare; ``check`` extra facts about
-    the current build's output."""
+    the current build's output; ``gate`` None for bit equality, else
+    (relative L2, max abs share) for the picked forces."""
     run: Callable
     pick: Callable = lambda out: out if isinstance(out, tuple) else (out,)
     check: Callable = lambda out: {}
     info: dict = field(default_factory=dict)
+    gate: tuple | None = None
 
 
 def build(module, csrc: Path, workdir: Path) -> ctypes.CDLL:
@@ -162,14 +175,15 @@ def _k1_case(ops, cfg, nsc, cap, halo):
     live = own[:, :nsc * cap] > 0
     args = (pack_params(cfg), cfg.force_law, bool(cfg.wrap_forces), nsc, cap)
     p = int(cfg.id_count)  # particle life: one feature column per species
-    bound_ms = live_pairs(live, nsc, cap) * (29 + 2 * p) / PEAK_FLOPS * 1e3
+    b = bound(live_pairs(live, nsc, cap), ops_one_sided(p, False), 0)
     return Case(
         run=lambda: S.column_sweep_forces(*ops, *args, halo=halo),
         pick=lambda out: (out.permute(0, 2, 1)[live],),
         check=lambda out: {"dead_rows_zero": bool(
             (out.permute(0, 2, 1)[~live] == 0).all())},
         info={"nsc": nsc, "cap": cap, "halo": halo, "receiver_columns": ncol,
-              "live_receivers": int(live.sum()), "bound_ms": bound_ms})
+              "live_receivers": int(live.sum()), "bound_ms": b[0],
+              "bound_ms_fp32_only": b[2]})
 
 
 # ----------------------------------------------------------- K2-K4 cases
@@ -217,12 +231,54 @@ def _k3(label):
 
 
 def _k2(label):
+    """K2 on a 32k scene, or at 262k on particle_life_large_allpairs;
+    its forces at K2's gate."""
+    from ..models import make_scene
     from ..ops import allpairs_sweep as A
+    from ..ops import forces as F
 
-    st, u, v, cfg = _tile_scene(label)
+    if label == "262k":
+        st, cfg, _ = make_scene("particle_life_large_allpairs", seed=0,
+                                device="cuda")
+        u, v = F.pair_features(st, cfg)
+    else:
+        st, u, v, cfg = _tile_scene(label)
     ops = A.tri_operands(st.positions, u, v, cfg, A.KERNEL_TILE)
     args = (cfg.force_law, bool(cfg.wrap_forces), A.KERNEL_TILE)
-    return Case(run=lambda: A.tri_sweep(*ops, *args))
+    n = st.n
+    b = bound(n * (n - 1) / 2, ops_two_sided(u.shape[1], bool(cfg.wrap_forces)),
+              0)
+    return Case(run=lambda: A.tri_sweep(*ops, *args),
+                pick=lambda out: (A.tri_forces(*out)[:n],), gate=K2_GATE,
+                info={"n": n, "bound_ms": b[0], "bound_ms_fp32_only": b[2]})
+
+
+def _k5(label, fast):
+    """K5 on the 32k particle-life scene or at 262k
+    (particle_life_large_allpairs) with their recommended ghost capacity;
+    its forces at K5's gate. The bound counts the live rows' pairs."""
+    from ..models import make_scene
+    from ..ops import allpairs_mxu_sweep as M
+    from ..ops import forces as F
+
+    if label == "262k":
+        st, cfg, _ = make_scene("particle_life_large_allpairs", seed=0,
+                                device="cuda")
+        u, v = F.pair_features(st, cfg)
+    else:
+        st, u, v, cfg = _tile_scene(label)
+    n = st.n
+    gcap = M.recommended_ghost_capacity(cfg, n)
+    ops = M.mxu_operands(st.positions, u, v, cfg, gcap, M.KERNEL_TILE)
+    m = n + int(M.ghost_count(st.positions, cfg))
+    b = bound(m * (m - 1) / 2, ops_mxu(u.shape[1], fast), 0)
+    return Case(run=lambda: M.mxu_sweep(*ops, cfg.force_law, fast,
+                                        M.KERNEL_TILE),
+                pick=lambda out: (M.tri_forces(*out)[:n],),
+                gate=K5_FAST_GATE if fast else K5_GATE,
+                info={"n": n, "rows": ops[0].shape[0], "live_rows": m,
+                      "fast": fast, "bound_ms": b[0],
+                      "bound_ms_fp32_only": b[2]})
 
 
 def _k4(label):
@@ -249,7 +305,12 @@ CASES = {
     **{f"{k}_32k_{s}": ("allpairs_sweep", lambda b=b, s=s: b(s))
        for k, b in (("k2", _k2), ("k3", _k3), ("k4", _k4))
        for s in ("particle_life", "walled", "lj")},
+    "k2_262k": ("allpairs_sweep", lambda: _k2("262k")),
     "k4_262k": ("allpairs_sweep", lambda: _k4("262k")),
+    **{f"k5_{n}_{m}": ("allpairs_mxu_sweep",
+                       lambda n=n, f=(m == "fast"): _k5(
+                           "262k" if n == "262k" else "particle_life", f))
+       for n in ("32k", "262k") for m in ("exact", "fast")},
 }
 
 
@@ -257,9 +318,9 @@ CASES = {
 
 
 def sass_loops(lib: Path, kernel: str):
-    """Instruction classes of each innermost loop (a backward branch
-    spanning under 300 instructions) that holds a MUFU, in each function
-    of ``lib`` whose mangled name contains ``kernel``."""
+    """Instruction classes of each innermost loop (a backward branch whose
+    span holds no other) that holds a MUFU or an HMMA, in each function of
+    ``lib`` whose mangled name contains ``kernel``."""
     from .cuda_build import _nvcc
 
     dump = subprocess.run([str(Path(_nvcc()).parent / "cuobjdump"), "-sass",
@@ -273,16 +334,21 @@ def sass_loops(lib: Path, kernel: str):
         ins = [(int(a, 16), t.strip()) for a, t in
                re.findall(r"/\*([0-9a-f]{4,})\*/\s+(.*?);", part)]
         at = {a: i for i, (a, _) in enumerate(ins)}
-        loops = []
+        spans = []
         for i, (a, t) in enumerate(ins):
             m = re.search(r"BRA\s+(?:`\()?0x([0-9a-f]+)", t)
             tgt = int(m.group(1), 16) if m else None
-            if tgt is None or tgt >= a or tgt not in at or i - at[tgt] >= 300:
+            if tgt is not None and tgt < a and tgt in at:
+                spans.append((at[tgt], i))
+        loops = []
+        for lo, hi in spans:
+            if any(lo <= l2 and h2 <= hi and (l2, h2) != (lo, hi)
+                   for l2, h2 in spans):
                 continue
             ops = [x.split()[1 if x.startswith("@") else 0].split(".")[0]
-                   for _, x in ins[at[tgt]:i + 1]]
-            if "MUFU" in ops:
-                loops.append({"instructions": len(ops),
+                   for _, x in ins[lo:hi + 1]]
+            if "MUFU" in ops or "HMMA" in ops:
+                loops.append({"instructions": len(ops), "HMMA": ops.count("HMMA"),
                               **{k: ops.count(k) for k in sorted(set(ops))}})
         found[name] = loops
     return found
@@ -299,6 +365,20 @@ def _ms(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def within(got, want, gate) -> dict:
+    """``got`` against ``want`` at a (relative L2, max abs share) gate."""
+    rel_l2, max_abs = gate
+    g, w = got.double(), want.double()
+    scale = float(w.abs().max())
+    err = float(torch.linalg.vector_norm(g - w) / torch.linalg.vector_norm(w))
+    share = float((g - w).abs().max()) / max(scale, 1e-30)
+    ok = (bool(torch.isfinite(g).all()) and 0 < scale <= 1e6
+          and (rel_l2 is None or err <= rel_l2)
+          and (max_abs is None or share <= max_abs))
+    return {"rel_l2": err, "max_abs_of_max_f": share, "gate": gate,
+            "within_gate": ok}
+
+
 def compare(case: Case, module, base_lib, reps):
     cur_out = case.run()
     base_out = run_with(module, base_lib, case.run)
@@ -306,15 +386,22 @@ def compare(case: Case, module, base_lib, reps):
     a, b = case.pick(cur_out), case.pick(base_out)
     equal = all(torch.equal(x, y) for x, y in zip(a, b))
     diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
+    if case.gate is None:
+        verdict = {"passed": equal}
+    else:
+        verdict = within(a[0], b[0], case.gate)
+        verdict["passed"] = verdict["within_gate"]
+    del cur_out, base_out, a, b
     times = {"base": [], "cur": []}
     for which in ("base", "cur", "cur", "base"):
         fn = case.run if which == "cur" else (
             lambda: run_with(module, base_lib, case.run))
         times[which].append(_ms(fn, reps))
     ms_b, ms_c = np.mean(times["base"]), np.mean(times["cur"])
+    check = case.check(case.run())
     rec = {**case.info, "baseline_ms": times["base"], "current_ms":
            times["cur"], "speedup": ms_b / ms_c, "outputs_bit_identical":
-           equal, "max_abs_diff": diff, **case.check(cur_out)}
+           equal, "max_abs_diff": diff, **verdict, **check}
     if "bound_ms" in case.info:
         rec.update(share_of_bound_current=case.info["bound_ms"] / ms_c,
                    share_of_bound_baseline=case.info["bound_ms"] / ms_b)
@@ -341,6 +428,7 @@ def main(argv=None):
     from .cuda_build import library_path
 
     names = a.case or list(CASES)
+    failed = []
     with tempfile.TemporaryDirectory() as tmp:
         libs = {}
         for mod_name in dict.fromkeys(CASES[c][0] for c in names):
@@ -363,8 +451,14 @@ def main(argv=None):
             rec = compare(case, module, base_lib, reps)
             print(json.dumps({"case": name, **rec, "baseline": str(a.baseline),
                               "device": smi}), flush=True)
+            if not rec["passed"]:
+                failed.append(name)
             del case
             torch.cuda.empty_cache()
+    if failed:
+        print(f"kernel_ab: outputs differ from the baseline's beyond the "
+              f"case's comparison: {failed}", flush=True)
+        return 1
     return 0
 
 

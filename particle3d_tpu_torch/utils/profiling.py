@@ -8,12 +8,16 @@ package's ``utils.profiling``).
         --preset particle_life_large --out build/profile
     python -m particle3d_tpu_torch.utils.profiling --path slab \\
         --preset slab_8m --steps 4 --out build/profile
+    python -m particle3d_tpu_torch.utils.profiling --path simulate \\
+        --preset particle_life_large_allpairs --neighbor allpairs_mxu \\
+        --steps 4 --out build/profile
 
 For each preset: the all-in ms/step of a 16-step and a 32-step window of
 the chosen path (best of two, after a warm-up): ``dense``
 (``simulate_dense``, the default), ``culled`` (``simulate_culled``, one
 Morton sort per window), ``simulate`` (the preset's own backend,
-e.g. ``allpairs_pallas``) or ``slab`` (``sharded_dense_steps`` on a
+e.g. ``allpairs_pallas``, or ``--neighbor``'s: the K5 path has no preset
+of its own) or ``slab`` (``sharded_dense_steps`` on a
 1-rank mesh, from an ``init_sharded_dense`` carry of a
 ``models.presets.SLAB_RUNS`` entry, named as the preset); the marginal
 ms/step between them, and a ``torch.profiler`` run over one 16-step window
@@ -141,6 +145,8 @@ def main(argv=None):
                    help="override the preset's cell capacity")
     p.add_argument("--steps", type=int, default=WINDOW)
     p.add_argument("--path", choices=PATHS, default="dense")
+    p.add_argument("--neighbor", default=None,
+                   help="override the preset's force backend")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     p.add_argument("--out", default=os.path.join("build", "profile"))
@@ -161,6 +167,8 @@ def main(argv=None):
         tag = preset if a.cap is None else f"{preset}_cap{a.cap}"
         if a.path not in ("dense", "slab"):
             tag = f"{tag}_{a.path}"
+        if a.neighbor is not None:
+            tag = f"{tag}_{a.neighbor}"
         trace = os.path.join(a.out, f"trace_{tag}.json")
         if a.path == "slab":
             run, n, cfg = _slab_scene(preset, device)
@@ -170,6 +178,8 @@ def main(argv=None):
                                         device=device)
             if a.cap is not None:
                 cfg = cfg.replace(cell_capacity=a.cap)
+            if a.neighbor is not None:
+                cfg = cfg.replace(neighbor=a.neighbor)
             rec, ka = profile_window(state, cfg, dt, a.steps, trace_path=trace,
                                      path=a.path)
         table = ka.table(sort_by="self_cuda_time_total" if device.type == "cuda"

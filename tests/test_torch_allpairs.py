@@ -258,3 +258,19 @@ def test_padded_rows_at_origin_stay_inert(kernel):
     assert want.abs().max() > 0
     np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-3,
                                atol=1e-4)
+
+
+def test_bounds_count_coefficients_at_the_tf32_rate():
+    """The restated bound (utils/bounds.py): K2 at N=262,144 and K5 over
+    the 303,298 live rows of particle_life_large_allpairs, with five-species
+    coefficients at the TF32 rate, against the FP32-only count."""
+    from particle3d_tpu_torch.utils.bounds import (bound, ops_mxu,
+                                                   ops_two_sided)
+
+    n, m = 262_144, 303_298
+    k2 = bound(n * (n - 1) / 2, ops_two_sided(5, True), 0)
+    k5 = bound(m * (m - 1) / 2, ops_mxu(5, False), 0)
+    assert k2[1] == k5[1] == "operations"
+    assert abs(k2[0] - 22.56) < 0.01 and abs(k2[2] - 32.82) < 0.01
+    assert abs(k5[0] - 28.15) < 0.01
+    assert bound(1, (0, 0), 3.35e12)[:2] == (1e3, "bytes")

@@ -221,3 +221,29 @@ def test_stale_receiver_row_is_zero_under_lennard_jones():
     assert bool(torch.isfinite(f).all())
     assert (f[ds.r2 <= 0.0] == 0.0).all() and (f[empty] == 0.0).all()
     assert torch.equal(f[ds.r2 > 0.0], before[ds.r2 > 0.0])
+
+
+@pytest.mark.parametrize("law", ["particle_life", "lennard_jones"])
+def test_plain_k1_is_bit_reproducible(law):
+    """Two calls of the plain K1 on the same operands, and a third on
+    copies of them at another alignment (4 bytes past a fresh
+    allocation's), give the same bits: its coefficient is an elementwise
+    sum in a fixed order, not a library product."""
+    cfg = from_jax_config(_cfg(law))
+    _, st = _both_states(1200, 9)
+    u, v = pad_features(*pair_features(st, cfg))
+    ops = TS.prepare_columns(st.positions, u, v, cfg, NSC, 32)[:5]
+    args = (pack_params(cfg), cfg.force_law, True, NSC, 32)
+    first = TS.column_sweep_forces_ref(*ops, *args)
+    assert torch.equal(first, TS.column_sweep_forces_ref(*ops, *args))
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype)
+        out = buf[1:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    moved = [shifted(t) for t in ops]
+    assert all(a.data_ptr() % 64 != b.data_ptr() % 64
+               for a, b in zip(moved, ops))
+    assert torch.equal(first, TS.column_sweep_forces_ref(*moved, *args))

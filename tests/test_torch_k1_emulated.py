@@ -3,7 +3,8 @@
 ``particle3d_tpu_torch/csrc/celllist_sweep.cu`` is built with g++ against
 ``tests/_cuda_emulation/cuda_runtime.h`` (lanes as threads, barriers for
 ``__syncthreads`` and warp ballots; the launch rewritten to a loop over
-blocks) and called through its C entry point on CPU tensors. This checks
+blocks) and called through its C entry point in a child process
+(``_cuda_emulated``). This checks
 the kernel's logic without a GPU: stages and their compaction, the packing
 of receivers onto lanes, passes, supercells split into pieces, the halo
 neighbour map, and exactly 0 on dead receiver rows. The arithmetic is the
@@ -12,17 +13,11 @@ sums' order differs from the plain version's). Skipped where no g++ with
 C++20's ``<barrier>`` is installed.
 """
 
-import ctypes
-import re
-import shutil
-import subprocess
-from pathlib import Path
-
 import numpy as np
 import pytest
 import torch
 
-import particle3d_tpu_torch
+from _cuda_emulated import Emulated, build
 from particle3d_tpu_torch.config import reference_config
 from particle3d_tpu_torch.ops import celllist_sweep as S
 from particle3d_tpu_torch.ops.forces import pad_features, pair_features
@@ -31,64 +26,44 @@ from particle3d_tpu_torch.parallel import domain_sharded as DS
 from particle3d_tpu_torch.parallel import make_mesh
 from particle3d_tpu_torch.state import from_numpy
 
-CSRC = Path(particle3d_tpu_torch.__file__).parent / "csrc"
-EMULATION = Path(__file__).parent / "_cuda_emulation"
+K1_SIG = "p" * 7 + "i" * 7 + "p"
 
 
 @pytest.fixture(scope="module")
 def k1_lib(tmp_path_factory):
-    """K1's source built for the CPU: the library with the kernel's entry
-    points and the emulation's ``emu_set_sm_count``."""
-    gxx = shutil.which("g++")
-    if gxx is None:
-        pytest.skip("no g++: K1's CPU emulation needs a C++20 compiler")
-    d = tmp_path_factory.mktemp("k1_emulated")
-    (d / "probe.cpp").write_text("#include <barrier>\nint main() { "
-                                 "std::barrier<> b(1); b.arrive_and_wait(); }\n")
-    probe = subprocess.run([gxx, "-std=c++20", "-pthread", "-o",
-                            str(d / "probe"), str(d / "probe.cpp")],
-                           capture_output=True, text=True)
-    if probe.returncode != 0:
-        pytest.skip(f"g++ lacks C++20's <barrier>: {probe.stderr[-300:]}")
-    src, n = re.subn(r"(column_sweep_kernel<[^>]*>)<<<(\w+), (\w+), 0, stream>>>\(",
-                     r"emu_launch(\2, \3, \1, ", (CSRC / "celllist_sweep.cu").read_text())
-    assert n == 1, "the kernel launch was not found"
-    (d / "celllist_sweep.cpp").write_text(src)
-    shutil.copy(CSRC / "pair_law.cuh", d)
-    subprocess.run([gxx, "-std=c++20", "-O1", "-fPIC", "-shared", "-pthread",
-                    "-ffp-contract=off", f"-I{EMULATION}", "-o",
-                    str(d / "k1.so"), str(d / "celllist_sweep.cpp")],
-                   check=True, capture_output=True)
-    lib = ctypes.CDLL(str(d / "k1.so"))
-    lib.p3t_column_sweep.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                                     + [ctypes.c_void_p])
-    lib.p3t_column_sweep.restype = ctypes.c_int
-    lib.p3t_column_sweep_geometry.argtypes = [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    lib.p3t_column_sweep_geometry.restype = None
-    lib.emu_set_sm_count.argtypes = [ctypes.c_int]
-    lib.emu_set_sm_count.restype = None
-    return lib
+    """K1's source built for the CPU and loaded in a child process: a
+    callable (entry point, signature, arguments, outputs, restype) on
+    numpy arrays, with the kernel's entry points and the emulation's
+    ``emu_set_sm_count``."""
+    paths = build(tmp_path_factory.mktemp("k1_emulated"),
+                  {"celllist_sweep": 1})
+    if paths is None:
+        pytest.skip("no g++ with C++20's <barrier> for K1's CPU emulation")
+    emu = Emulated()
+    yield lambda fn, sig, args, outs=(), restype="i": emu.call(
+        paths["celllist_sweep"], fn, sig, args, outs, restype)
+    emu.close()
 
 
 @pytest.fixture(scope="module")
 def k1(k1_lib):
-    return k1_lib.p3t_column_sweep
+    return lambda args, outs: k1_lib("p3t_column_sweep", K1_SIG, args, outs)
 
 
 def _geometry(lib, nsc, cap, ncol, p):
-    out = (ctypes.c_int * 5)()
-    lib.p3t_column_sweep_geometry(nsc, cap, ncol, p, out)
-    return tuple(out)[:3]  # zr, nsub, nzb
+    _, (out,) = lib("p3t_column_sweep_geometry", "iiiip",
+                    [nsc, cap, ncol, p, np.zeros(5, np.int32)], (4,),
+                    restype=None)
+    return tuple(int(x) for x in out[:3])  # zr, nsub, nzb
 
 
 def _run(fn, ops, cfg, nsc, cap, halo):
-    out = torch.full((ops[0].shape[0], 3, nsc * cap), float("nan"))
-    pf = np.ascontiguousarray(pack_params(cfg))
-    err = fn(*(t.data_ptr() for t in ops), pf.ctypes.data, out.data_ptr(),
-             LAW_IDS[cfg.force_law], int(cfg.wrap_forces), int(halo), nsc,
-             cap, ops[0].shape[0], ops[1].shape[1], None)
+    out = np.full((ops[0].shape[0], 3, nsc * cap), np.nan, np.float32)
+    err, (out,) = fn([*(t.numpy() for t in ops), pack_params(cfg), out,
+                      LAW_IDS[cfg.force_law], int(cfg.wrap_forces), int(halo),
+                      nsc, cap, ops[0].shape[0], ops[1].shape[1], None], (6,))
     assert err == 0
-    return out
+    return torch.from_numpy(out)
 
 
 def _check(fn, ops, cfg, nsc, cap, halo=False):
@@ -140,12 +115,13 @@ def test_grid_split_for_a_short_wave_matches_plain(k1_lib):
     cfg = reference_config(world_size=w)
     ops = _grid_ops(_scene(5000, w, 4), cfg, nsc, cap)
     assert _geometry(k1_lib, nsc, cap, nsc * nsc, 8) == (9, 1, 1)
-    k1_lib.emu_set_sm_count(8)
+    k1_lib("emu_set_sm_count", "i", [8], restype=None)
     try:
         assert _geometry(k1_lib, nsc, cap, nsc * nsc, 8) == (5, 1, 2)
-        _check(k1_lib.p3t_column_sweep, ops, cfg, nsc, cap)
+        _check(lambda a, o: k1_lib("p3t_column_sweep", K1_SIG, a, o), ops,
+               cfg, nsc, cap)
     finally:
-        k1_lib.emu_set_sm_count(1)
+        k1_lib("emu_set_sm_count", "i", [1], restype=None)
 
 
 def test_stale_receiver_row_under_lennard_jones_is_zero(k1):
