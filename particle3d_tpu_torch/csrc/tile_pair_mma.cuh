@@ -44,9 +44,10 @@
 // 48 instructions a pair for K2, 128 registers, 4 blocks an SM), and its
 // time barely follows the instruction count, so latency is what is left:
 // each n-tile opens with a chain of dependent HMMA and closes with a chain
-// of shuffles. Measured against this shape and slower (PERF.md section
-// 6): 4 m-tiles a warp, the n-tile loop unrolled by 2, and register caps
-// for 5 or 6 blocks an SM (all spill or lose blocks).
+// of shuffles. Measured against this shape and not faster (PERF.md
+// section 6): 4 m-tiles a warp, the n-tile loop unrolled by 2, register
+// caps for 5 or 6 blocks an SM (all spill or lose blocks), and the next
+// n-tile's products issued before this one's shuffles.
 //
 // Modes (`PairMode`), as the Pallas kernels form geometry and sums:
 //   K2_WRAP   box units, dx - rint(dx), gate 1e-12 < d2 < r2row, d2 scaled

@@ -9,12 +9,14 @@ installed. ``Emulated`` loads the libraries in one spawned child and calls
 their C entry points there on numpy arrays.
 
 Why a child: the emulation runs every block's threads as std::threads,
-and a process that has run them was seen to compute its first parallel
-``torch.sqrt`` wrongly on one worker thread's share of the elements
-(sqrt(1) = 1 - 2^-12, about one run in eight under load) — the source of
-the plain versions' occasional non-reproducibility in the test suite. The
-caller's process, where the plain versions run, never runs an emulated
-kernel. The child imports numpy and ctypes only.
+and the caller's process, where the plain versions run, should hold no
+state from them. The child imports numpy and ctypes only. Before it is
+spawned, the caller runs one parallel torch op (``start_torch_threads``):
+a process's first parallel torch op after it had spawned a child (or run
+the emulation's threads) before torch's thread pool existed has been seen
+to return wrong ``torch.sqrt`` values on one worker thread's share of the
+elements (sqrt(1) = 1 - 2^-12, in 2 of 8 runs on an AVX-512 CPU) — the
+plain versions' occasional non-reproducibility in the test suite.
 """
 
 from __future__ import annotations
@@ -85,10 +87,20 @@ def _call(lib: str, fn: str, sig: str, restype: str | None, args, outs):
     return rc, [args[i] for i in outs]
 
 
+def start_torch_threads():
+    """One parallel torch op, so that torch's thread pool exists before the
+    caller spawns a process (see the module docstring); its result is
+    discarded."""
+    import torch
+
+    torch.sqrt(torch.ones(1 << 22))
+
+
 class Emulated:
     """One spawned child that holds the emulated libraries."""
 
     def __init__(self):
+        start_torch_threads()
         self._pool = ProcessPoolExecutor(
             1, mp_context=multiprocessing.get_context("spawn"))
 

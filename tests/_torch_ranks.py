@@ -21,6 +21,8 @@ import traceback
 
 import torch.multiprocessing as mp
 
+from _cuda_emulated import start_torch_threads
+
 RANK_TIMEOUT_S = 120.0
 
 
@@ -50,6 +52,8 @@ def _child(rank, d, port, fn, args, out):
 
 
 def run_ranks(fn, d: int, *args, timeout_s: float = RANK_TIMEOUT_S):
+    # torch's thread pool must exist before the spawn: see _cuda_emulated
+    start_torch_threads()
     ctx = mp.get_context("spawn")
     out = ctx.Queue()
     port = _free_port()
