@@ -44,10 +44,13 @@ exits non-zero:
      a clustered N=32,768 scene, and a scene with padded rows at the
      origin and a real particle 1e-4 from them under Lennard-Jones (N=300:
      finite, and equal to plain all-pairs);
-  9. K4 against its plain version at N=32,768 and N=12,345, and at
+  9. K4 against its plain version at N=32,768 (particle life periodic and
+     walled, Lennard-Jones on a jittered lattice) and N=12,345, and at
      N=262,144 against dense K2 on the Morton-sorted particle_life_large
-     scene, and on phase 8's padded-row scene with the lower-triangular
-     worklist (the padded tile as a receiver);
+     scene (the worklist's runs a receiver tile, mean and longest, the
+     shares S of a run and the blocks launched printed), and on phase 8's
+     padded-row scene with the lower-triangular worklist (the padded tile
+     as a receiver, entries j < i);
  10. the all-pairs paths: `run --preset particle_life_large_allpairs
      --steps 4` (4 K2 launches), two steps of it rerun bit-identically, the
      flagship step (reference scene, N=4,096) against plain all-pairs and
@@ -791,11 +794,17 @@ def phase_pairlist():
     log(f"[9] K4 against its plain version (N={N_SMALL}), and against dense "
         f"K2 at N={N_LARGE}")
     gen = torch.Generator().manual_seed(7)
-    for n in (N_SMALL, N_RAGGED):
-        _, s, c = _law_scenes(n, gen)[0]
+    small = _law_scenes(N_SMALL, gen)
+    _, pl_st, pl_cfg = small[0]
+    scenes = [(N_SMALL, *small[0]),
+              (N_SMALL, "particle_life walled", pl_st,
+               pl_cfg.replace(boundary="clamp", wrap_forces=False)),
+              (N_SMALL, *small[1]),
+              (N_RAGGED, *_law_scenes(N_RAGGED, gen)[0])]
+    for n, label, s, c in scenes:
         args, count = _worklist_operands(_morton_sorted(s, c), c)
         wj = args[6]
-        compare(f"K4 particle_life (N={n}, {count} tile pairs)",
+        compare(f"K4 {label} (N={n}, {count} tile pairs)",
                 A.pairlist_forces(*A.pairlist_sweep(*args), wj)[:n],
                 A.pairlist_forces(*A.pairlist_sweep_ref(*args), wj)[:n])
 
@@ -813,9 +822,17 @@ def phase_pairlist():
     b = bound(pairs, ops_two_sided(u.shape[1], True),
               nbytes(*args[:7], oa, ob))
     plain_ms, (pa, pb) = timed_ms(lambda: A.pairlist_sweep_ref(*args), 1)
+    runs = A.worklist_row_start(args[5], nt).diff()
+    splits = A.pairlist_splits(count, nt)
     log(f"  K4 {ms:.3f} ms over {count} tile pairs (of "
         f"{(N_LARGE // t) * (N_LARGE // t + 1) // 2}), plain {plain_ms:.3f} "
         f"ms, {bound_text(b)}")
+    share = -(-runs // splits)
+    busy = int((-(-runs // share.clamp(min=1))).sum())
+    log(f"  worklist runs a receiver tile: mean {count / nt:.2f}, longest "
+        f"{int(runs.max())}; S = {splits} shares a run, {nt * splits} blocks "
+        f"launched, {busy} with entries, at most {int(share.max())} entries "
+        f"a block")
     err = compare(f"K4 N={N_LARGE} vs its plain version", got,
                   A.pairlist_forces(pa, pb, wj))
     del pa, pb

@@ -1,11 +1,17 @@
-// The triangular tile-pair sweep that K2 (allpairs_sweep.cu, tri_kernel) and
-// K5 (allpairs_mxu.cu, mxu_kernel) share, designed for Hopper's warps and
-// tensor cores.
+// The tile-pair sweep that the all-pairs kernels share, designed for
+// Hopper's warps and tensor cores: K2 (allpairs_sweep.cu, tri_kernel) and
+// K5 (allpairs_mxu.cu, mxu_kernel) through `tri_sweep_block`, K4
+// (pairlist_kernel) through `worklist_sweep_block` and K3 (rect_kernel)
+// through the one-sided `rect_sweep_block`.
 //
-// One block of 4 warps takes receiver tile i and a span of steps k; each
-// step sweeps the unordered tile pair (i, j = (i + k) mod nt) of TILE x TILE
-// rows. Per pair it needs two rank-1 coefficients, c_ij = U_i . V_j for
-// the i-side and c_ji = V_i . U_j for the j-side, and the law.
+// One block of 4 warps takes receiver tile i and a sequence of source
+// tiles j: K2 and K5 a span of steps k, j = (i + k) mod nt; K4 a share of
+// tile i's run of worklist entries; K3 a span of the source set's tiles.
+// Each step sweeps the tile pair (i, j) of TILE x TILE rows. Per pair the
+// two-sided sweeps need two rank-1 coefficients, c_ij = U_i . V_j for the
+// i-side and c_ji = V_i . U_j for the j-side, and the law; the one-sided
+// sweep (the `SELF` shape: K2's k = 0 diagonal, K4's self entries, every
+// K3 pair) only c_ij.
 //
 //   Coefficients on tensor cores. A warp owns MT m-tiles of 16 receiver
 //   rows and walks the source tile in n-tiles of 8 columns. Per (m-tile,
@@ -52,11 +58,16 @@
 // Modes (`PairMode`), as the Pallas kernels form geometry and sums:
 //   K2_WRAP   box units, dx - rint(dx), gate 1e-12 < d2 < r2row, d2 scaled
 //             by w^2 for the law; direct sums delta * s; results times w
-//   K2_WALLS  world units, gate 0 < d2 < r2row; direct sums
+//             (K2 and K4)
+//   K2_WALLS  world units, gate 0 < d2 < r2row; direct sums (K2 and K4)
 //   K5_EXACT  world units, plain deltas, gate 0 < d2 < r2row; factored sums
 //             A = sum_j s_ij [p_j | 1], fixed up as A[:3] - p_i A[3]
 //   K5_FAST   d2 from the Gram form |p_i|^2 + |p_j|^2 + 2 - 2 p4_i . p4_j
 //             (FP32 FFMA), clamped at 0; factored sums
+//   K3_WRAP   one-sided, world units, dx - rint(dx * (1/w)) * w, the law
+//             and gate of `gated_scale` (d2 < r2row; particle life clamps
+//             d2 at 1e-12, the other laws also need d2 > 0), direct sums
+//   K3_WALLS  K3_WRAP without the wrap
 // Guards kept from `_tri_body` / `_mxu_kernel`: the k = 0 diagonal is
 // one-sided and its j-side written as 0 (K5 also masks its index diagonal);
 // for even nt the k = nt/2 step runs only for i < nt/2; receiver rows whose
@@ -66,7 +77,10 @@
 // row's imask 0, found by a block-wide vote on the tile's imask, with no
 // extra operand and no host sync), so rows < N lose only the (near-)zero
 // terms of particle life's parked invalid-ghost pairs. A skipped step writes
-// zeros to its out_b block.
+// zeros to its out_b block. K4 and K3 keep the same guards where they
+// apply: K4's self entries are one-sided with their j-side written as 0,
+// and its padded receiver rows are selected out of the j-side; K3 stages a
+// ragged source tail with r2row = -1 and selects its unused columns out.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -78,10 +92,14 @@
 
 namespace p3t {
 
-enum PairMode : int { K2_WRAP = 0, K2_WALLS = 1, K5_EXACT = 2, K5_FAST = 3 };
+enum PairMode : int {
+  K2_WRAP = 0, K2_WALLS = 1, K5_EXACT = 2, K5_FAST = 3, K3_WRAP = 4,
+  K3_WALLS = 5
+};
 
 template <int MODE>
 struct Mode {
+  static constexpr bool ONE_SIDED = MODE == K3_WRAP || MODE == K3_WALLS;
   static constexpr bool BOX = MODE == K2_WRAP;
   static constexpr bool FACTORED = MODE == K5_EXACT || MODE == K5_FAST;
   static constexpr bool GRAM = MODE == K5_FAST;
@@ -254,17 +272,23 @@ struct Receivers {
   uint32_t ua[MT][PP / 8][2][4], va[MT][PP / 8][2][4];  // A fragments
 };
 
+// One-sided modes read rows past `last` (a ragged receiver tail) from row
+// `last`, have no imask and need no V_i
 template <int MODE, int PP>
 __device__ __forceinline__ void load_receivers(
     Receivers<PP>& r, const float* __restrict__ pos, const float* __restrict__ u,
     const float* __restrict__ v, const float* __restrict__ imask,
-    const size_t row0, const int g, const int t) {
+    const size_t row0, const int g, const int t, const size_t last = 0) {
+  using M = Mode<MODE>;
+  const auto at = [&](size_t row) {
+    return M::ONE_SIDED && row > last ? last : row;
+  };
 #pragma unroll
   for (int mb = 0; mb < MT; ++mb) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const size_t row = row0 + mb * 16 + g + 8 * h;
-      if (Mode<MODE>::FACTORED) {
+      const size_t row = at(row0 + mb * 16 + g + 8 * h);
+      if (M::FACTORED) {
         const float4 q = reinterpret_cast<const float4*>(pos)[row];
         r.x[mb][h] = q.x;
         r.y[mb][h] = q.y;
@@ -276,16 +300,18 @@ __device__ __forceinline__ void load_receivers(
         r.y[mb][h] = pos[3 * row + 1];
         r.z[mb][h] = pos[3 * row + 2];
       }
-      r.live[mb][h] = imask[row] > 0.0f;
+      if (!M::ONE_SIDED) r.live[mb][h] = imask[row] > 0.0f;
     }
 #pragma unroll
     for (int ks = 0; ks < PP / 8; ++ks) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {  // a_e: row g + 8 (e & 1), k t + 4 (e >> 1)
-        const size_t off = (row0 + mb * 16 + g + 8 * (e & 1)) * PP + 8 * ks +
-                           t + 4 * (e >> 1);
+        const size_t off = at(row0 + mb * 16 + g + 8 * (e & 1)) * PP +
+                           8 * ks + t + 4 * (e >> 1);
         split_tf32(u[off], r.ua[mb][ks][0][e], r.ua[mb][ks][1][e]);
-        split_tf32(v[off], r.va[mb][ks][0][e], r.va[mb][ks][1][e]);
+        if (!M::ONE_SIDED) {
+          split_tf32(v[off], r.va[mb][ks][0][e], r.va[mb][ks][1][e]);
+        }
       }
     }
   }
@@ -295,20 +321,24 @@ __device__ __forceinline__ void load_receivers(
 
 // The warp's share of one staged tile pair: adds the i-side to acc and
 // leaves each column's j-side sum over the warp's rows in sm.part[wr]
-// (none when SELF, the one-sided k = 0 diagonal)
-template <int LAW, int MODE, int PP, bool SELF>
+// (none when SELF: the one-sided shape). TAIL (one-sided modes): only the
+// first `ncols` staged columns are real; the others are selected out.
+template <int LAW, int MODE, int PP, bool SELF, bool TAIL = false>
 __device__ __forceinline__ void sweep_tile_pair(PairSmem<PP>& sm,
                                                 const Receivers<PP>& r,
                                                 float (&acc)[MT][2][4],
                                                 const int wr, const int wc,
                                                 const int lane,
-                                                const PairParams& pf) {
+                                                const PairParams& pf,
+                                                const int ncols = TILE) {
   using M = Mode<MODE>;
+  static_assert(SELF || !M::ONE_SIDED, "one-sided modes take the SELF shape");
   constexpr int KS = PP / 8;
   const int g = lane >> 2;
   const int t = lane & 3;
   const float w = pf.v[PF_W];
   const float w2 = w * w;
+  const float inv_w = pf.v[PF_INV_W];
   const int rbase = wr * MT * 16 + g;  // receiver row of (mb, h): + 16 mb + 8 h
 
 #pragma unroll 1
@@ -334,6 +364,24 @@ __device__ __forceinline__ void sweep_tile_pair(PairSmem<PP>& sm,
         const int cc = e & 1;
         const float4 s = src[cc];
         const float rx = r.x[mb][h], ry = r.y[mb][h], rz = r.z[mb][h];
+        float* a = acc[mb][h];
+        if (M::ONE_SIDED) {
+          float dx = s.x - rx;
+          float dy = s.y - ry;
+          float dz = s.z - rz;
+          if (MODE == K3_WRAP) {
+            dx = dx - rintf(dx * inv_w) * w;
+            dy = dy - rintf(dy * inv_w) * w;
+            dz = dz - rintf(dz * inv_w) * w;
+          }
+          const float d2 = dx * dx + dy * dy + dz * dz;
+          float sij = gated_scale<LAW>(d2, d2 < s.w, cij[e], pf);
+          if (TAIL) sij = c0 + cc < ncols ? sij : 0.0f;
+          a[0] = fmaf(dx, sij, a[0]);
+          a[1] = fmaf(dy, sij, a[1]);
+          a[2] = fmaf(dz, sij, a[2]);
+          continue;
+        }
         float dx = 0.0f, dy = 0.0f, dz = 0.0f, d2;
         if (M::GRAM) {
           const float snn = cc ? gate.w : gate.y;
@@ -356,7 +404,6 @@ __device__ __forceinline__ void sweep_tile_pair(PairSmem<PP>& sm,
         if (M::BOX) d2 = d2 * w2;
         const PairParts parts = pair_parts<LAW, M::ROOTS>(d2, valid, pf);
         const float sij = directional_scale(parts, cij[e]);
-        float* a = acc[mb][h];
         if (M::FACTORED) {
           a[0] = fmaf(sij, s.x, a[0]);
           a[1] = fmaf(sij, s.y, a[1]);
@@ -395,9 +442,133 @@ __device__ __forceinline__ void sweep_tile_pair(PairSmem<PP>& sm,
   }
 }
 
-// ---------------------------------------------------------- the block
+// ------------------------------------------------- staging and sums
 
-// One block of TILE threads: receiver tile blockIdx.x, steps
+// Source row jr into slot a of the staged tile: position and gate, and the
+// B fragments of V (and of U, for the two-sided modes)
+template <int MODE, int PP>
+__device__ __forceinline__ void stage_source(PairSmem<PP>& sm,
+                                             const float* __restrict__ pos,
+                                             const float* __restrict__ u,
+                                             const float* __restrict__ v,
+                                             const float* __restrict__ r2row,
+                                             const size_t jr, const int a) {
+  using M = Mode<MODE>;
+  if (M::FACTORED) {
+    const float4 q = reinterpret_cast<const float4*>(pos)[jr];
+    sm.p[a] = q;
+    sm.q[a] = make_float2(r2row[jr], q.x * q.x + q.y * q.y + q.z * q.z);
+  } else {
+    sm.p[a] = make_float4(pos[3 * jr], pos[3 * jr + 1], pos[3 * jr + 2],
+                          r2row[jr]);
+  }
+  if (!M::ONE_SIDED) stage_fragments<PP>(sm.u, u + jr * PP, a);
+  stage_fragments<PP>(sm.v, v + jr * PP, a);
+}
+
+__device__ __forceinline__ void write_zeros(float* __restrict__ ob,
+                                            const size_t stride, const int a) {
+  ob[a] = 0.0f;
+  ob[stride + a] = 0.0f;
+  ob[2 * stride + a] = 0.0f;
+}
+
+// Column a's j-side of the swept tile pair: sm.part summed over the warps
+// along the rows in a fixed order, written to ob[c * stride + a] negated
+// and in world units (K2, K4) or fixed up (K5)
+template <int MODE, int PP>
+__device__ __forceinline__ void write_j_side(const PairSmem<PP>& sm,
+                                             float* __restrict__ ob,
+                                             const size_t stride, const int a,
+                                             const float w) {
+  using M = Mode<MODE>;
+  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+  for (int q = 0; q < WARP_ROWS; ++q) {
+#pragma unroll
+    for (int c = 0; c < M::NC; ++c) s[c] += sm.part[q][c][a];
+  }
+  if (M::FACTORED) {
+    const float4 p = sm.p[a];
+    ob[a] = s[0] - p.x * s[3];
+    ob[stride + a] = s[1] - p.y * s[3];
+    ob[2 * stride + a] = s[2] - p.z * s[3];
+  } else {
+    const float sc = M::BOX ? -w : -1.0f;
+    ob[a] = s[0] * sc;
+    ob[stride + a] = s[1] * sc;
+    ob[2 * stride + a] = s[2] * sc;
+  }
+}
+
+// Row a's i-side sums s over the block's sweep: acc over the quad's 4
+// lanes (a butterfly: every lane gets the same total), then over the warps
+// along the columns, in a fixed order. Opens with a barrier (every staged
+// tile and column sum is consumed).
+template <int MODE, int PP>
+__device__ __forceinline__ void i_side_sums(PairSmem<PP>& sm,
+                                            float (&acc)[MT][2][4],
+                                            const int wr, const int wc,
+                                            const int lane, const int a,
+                                            float (&s)[4]) {
+  using M = Mode<MODE>;
+#pragma unroll
+  for (int mb = 0; mb < MT; ++mb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < M::NC; ++c) {
+        float x = acc[mb][h][c];
+        x += __shfl_xor_sync(FULL, x, 1);
+        x += __shfl_xor_sync(FULL, x, 2);
+        acc[mb][h][c] = x;
+      }
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int mb = 0; mb < MT; ++mb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      if (((2 * mb + h) & 3) != (lane & 3)) continue;
+      const int rr = wr * MT * 16 + 16 * mb + (lane >> 2) + 8 * h;
+#pragma unroll
+      for (int c = 0; c < M::NC; ++c) sm.part[wc][c][rr] = acc[mb][h][c];
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int c = 0; c < 4; ++c) s[c] = 0.0f;
+#pragma unroll
+  for (int q = 0; q < WARP_COLS; ++q) {
+#pragma unroll
+    for (int c = 0; c < M::NC; ++c) s[c] += sm.part[q][c][a];
+  }
+}
+
+// Row `row`'s i-side to oa: in world units (K2, K4, K3) or fixed up (K5)
+template <int MODE>
+__device__ __forceinline__ void write_i_side(float* __restrict__ oa,
+                                             const float (&s)[4],
+                                             const float* __restrict__ pos,
+                                             const size_t row, const float w) {
+  using M = Mode<MODE>;
+  if (M::FACTORED) {
+    const float4 p = reinterpret_cast<const float4*>(pos)[row];
+    oa[0] = s[0] - p.x * s[3];
+    oa[1] = s[1] - p.y * s[3];
+    oa[2] = s[2] - p.z * s[3];
+  } else {
+    const float sc = M::BOX ? w : 1.0f;
+    oa[0] = s[0] * sc;
+    oa[1] = s[1] * sc;
+    oa[2] = s[2] * sc;
+  }
+}
+
+// ---------------------------------------------------------- the blocks
+
+// K2 and K5. One block of TILE threads: receiver tile blockIdx.x, steps
 // [blockIdx.y * kspan, ...) of nk = nt / 2 + 1. `pos` is [Np, 3] (K2) or
 // p4 [Np, 4] (K5); `mask` (K2, or null) the bit mask [nt, nkw] of steps to
 // run; K5 skips the tile pairs of a tile with no row whose imask > 0. Writes
@@ -431,11 +602,9 @@ __device__ __forceinline__ void tri_sweep_block(
   if (M::FACTORED && !__syncthreads_or(imask[row] > 0.0f)) {
     // a dead receiver tile: all zeros
     for (int k = k0; k < k1; ++k) {
-      float* ob = out_b + static_cast<size_t>(k) * 3 * np +
-                  static_cast<size_t>((i + k) % nt) * TILE;
-      ob[a] = 0.0f;
-      ob[np + a] = 0.0f;
-      ob[2 * np + a] = 0.0f;
+      write_zeros(out_b + static_cast<size_t>(k) * 3 * np +
+                      static_cast<size_t>((i + k) % nt) * TILE,
+                  np, a);
     }
     oa[0] = oa[1] = oa[2] = 0.0f;
     return;
@@ -464,95 +633,152 @@ __device__ __forceinline__ void tri_sweep_block(
       }
     }
     if (!run) {
-      ob[a] = 0.0f;
-      ob[np + a] = 0.0f;
-      ob[2 * np + a] = 0.0f;
+      write_zeros(ob, np, a);
       continue;
     }
-    {
-      if (M::FACTORED) {
-        const float4 q = reinterpret_cast<const float4*>(pos)[jr];
-        sm.p[a] = q;
-        sm.q[a] = make_float2(r2row[jr], q.x * q.x + q.y * q.y + q.z * q.z);
-      } else {
-        sm.p[a] = make_float4(pos[3 * jr], pos[3 * jr + 1], pos[3 * jr + 2],
-                              r2row[jr]);
-      }
-      stage_fragments<PP>(sm.u, u + jr * PP, a);
-      stage_fragments<PP>(sm.v, v + jr * PP, a);
-    }
+    stage_source<MODE, PP>(sm, pos, u, v, r2row, jr, a);
     __syncthreads();
     if (k == 0) {
       sweep_tile_pair<LAW, MODE, PP, true>(sm, r, acc, wr, wc, lane, pf);
-      ob[a] = 0.0f;
-      ob[np + a] = 0.0f;
-      ob[2 * np + a] = 0.0f;
+      write_zeros(ob, np, a);
       continue;
     }
     sweep_tile_pair<LAW, MODE, PP, false>(sm, r, acc, wr, wc, lane, pf);
     __syncthreads();
-    float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-    for (int q = 0; q < WARP_ROWS; ++q) {
-#pragma unroll
-      for (int c = 0; c < M::NC; ++c) s[c] += sm.part[q][c][a];
+    write_j_side<MODE, PP>(sm, ob, np, a, w);
+  }
+
+  float s[4];
+  i_side_sums<MODE, PP>(sm, acc, wr, wc, lane, a, s);
+  write_i_side<MODE>(oa, s, pos, row, w);
+}
+
+// K4. One block of TILE threads: receiver tile i = blockIdx.x and share
+// blockIdx.y of the gridDim.y shares of its run of worklist entries
+// [row_start[i], row_start[i + 1]) (each ceil(run / gridDim.y) entries,
+// in order; a share may be empty). Entry s sweeps the tile pair (i, wj[s]):
+// a self entry (wj[s] == i) one-sided, its out_b block written as 0; any
+// other in both directions, its j-side (negated and in world units)
+// written once to out_b[s] ([W, 3, TILE]). Writes the share's i-side (in
+// world units; zeros for an empty share) to out_a_part[blockIdx.y].
+// Modes K2_WRAP and K2_WALLS.
+template <int LAW, int MODE, int PP>
+__device__ __forceinline__ void worklist_sweep_block(
+    const float* __restrict__ pos, const float* __restrict__ u,
+    const float* __restrict__ v, const float* __restrict__ r2row,
+    const float* __restrict__ imask, const int* __restrict__ wj,
+    const int* __restrict__ row_start, const int nt,
+    float* __restrict__ out_a_part, float* __restrict__ out_b,
+    const PairParams& pf) {
+  __shared__ PairSmem<PP> sm;
+  const int i = blockIdx.x;
+  const int a = threadIdx.x;
+  const int lane = a & 31;
+  const int warp = a >> 5;
+  const int wr = warp % WARP_ROWS;
+  const int wc = warp / WARP_ROWS;
+  const size_t np = static_cast<size_t>(nt) * TILE;
+  const size_t row = static_cast<size_t>(i) * TILE + a;
+  const float w = pf.v[PF_W];
+  float* oa = out_a_part + (static_cast<size_t>(blockIdx.y) * np + row) * 3;
+  const int r0 = row_start[i];
+  const int r1 = row_start[i + 1];
+  const int share = (r1 - r0 + static_cast<int>(gridDim.y) - 1) /
+                    static_cast<int>(gridDim.y);
+  const int s0 = min(r1, r0 + static_cast<int>(blockIdx.y) * share);
+  const int s1 = min(r1, s0 + share);
+  if (s0 == s1) {  // block-uniform: an empty share
+    oa[0] = oa[1] = oa[2] = 0.0f;
+    return;
+  }
+
+  Receivers<PP> r;
+  load_receivers<MODE, PP>(r, pos, u, v, imask,
+                           static_cast<size_t>(i) * TILE + wr * MT * 16,
+                           lane >> 2, lane & 3);
+  float acc[MT][2][4] = {};
+
+  for (int s = s0; s < s1; ++s) {  // block-uniform control flow throughout
+    const int j = wj[s];
+    float* ob = out_b + static_cast<size_t>(s) * 3 * TILE;
+    __syncthreads();  // the previous pair's staged tile and sums are consumed
+    stage_source<MODE, PP>(sm, pos, u, v, r2row,
+                           static_cast<size_t>(j) * TILE + a, a);
+    __syncthreads();
+    if (j == i) {
+      sweep_tile_pair<LAW, MODE, PP, true>(sm, r, acc, wr, wc, lane, pf);
+      write_zeros(ob, TILE, a);
+      continue;
     }
-    if (M::FACTORED) {
-      const float4 p = sm.p[a];
-      ob[a] = s[0] - p.x * s[3];
-      ob[np + a] = s[1] - p.y * s[3];
-      ob[2 * np + a] = s[2] - p.z * s[3];
+    sweep_tile_pair<LAW, MODE, PP, false>(sm, r, acc, wr, wc, lane, pf);
+    __syncthreads();
+    write_j_side<MODE, PP>(sm, ob, TILE, a, w);
+  }
+
+  float sums[4];
+  i_side_sums<MODE, PP>(sm, acc, wr, wc, lane, a, sums);
+  write_i_side<MODE>(oa, sums, pos, row, w);
+}
+
+// K3. One block of TILE threads: receiver tile blockIdx.x of pos [n, 3]
+// (rows past n read row n - 1 and write nothing) against source tiles
+// [blockIdx.y * span, ...) of src [m, 3], one-sided (modes K3_WRAP and
+// K3_WALLS). A ragged last source tile is staged with r2row = -1 and zero
+// V on its unused rows, which are also selected out. Writes the span's
+// sums to out_part[blockIdx.y] ([S, n, 3]).
+template <int LAW, int MODE, int PP>
+__device__ __forceinline__ void rect_sweep_block(
+    const float* __restrict__ pos, const float* __restrict__ u, const int n,
+    const float* __restrict__ src, const float* __restrict__ v,
+    const float* __restrict__ r2row, const int m, const int span,
+    float* __restrict__ out_part, const PairParams& pf) {
+  __shared__ PairSmem<PP> sm;
+  const int a = threadIdx.x;
+  const int lane = a & 31;
+  const int warp = a >> 5;
+  const int wr = warp % WARP_ROWS;
+  const int wc = warp / WARP_ROWS;
+  const size_t row0 = static_cast<size_t>(blockIdx.x) * TILE;
+  const int ntj = (m + TILE - 1) / TILE;
+  const int t0 = blockIdx.y * span;
+  const int t1 = min(ntj, t0 + span);
+
+  Receivers<PP> r;
+  load_receivers<MODE, PP>(r, pos, u, nullptr, nullptr, row0 + wr * MT * 16,
+                           lane >> 2, lane & 3, static_cast<size_t>(n - 1));
+  float acc[MT][2][4] = {};
+
+  for (int jt = t0; jt < t1; ++jt) {  // block-uniform control flow throughout
+    const int ncols = min(TILE, m - jt * TILE);
+    const size_t jr = static_cast<size_t>(jt) * TILE + a;
+    __syncthreads();  // the previous tile is consumed
+    if (a < ncols) {
+      stage_source<MODE, PP>(sm, src, nullptr, v, r2row, jr, a);
     } else {
-      const float sc = M::BOX ? -w : -1.0f;
-      ob[a] = s[0] * sc;
-      ob[np + a] = s[1] * sc;
-      ob[2 * np + a] = s[2] * sc;
+      sm.p[a] = make_float4(0.0f, 0.0f, 0.0f, -1.0f);
+#pragma unroll
+      for (int ks = 0; ks < PP / 8; ++ks) {
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          sm.v[ks][a][t] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        }
+      }
+    }
+    __syncthreads();
+    if (ncols == TILE) {
+      sweep_tile_pair<LAW, MODE, PP, true>(sm, r, acc, wr, wc, lane, pf);
+    } else {
+      sweep_tile_pair<LAW, MODE, PP, true, true>(sm, r, acc, wr, wc, lane, pf,
+                                                 ncols);
     }
   }
 
-  // the i-side: over the quad's 4 lanes (a butterfly: every lane gets the
-  // same total), then over the warps along the columns, in a fixed order
-#pragma unroll
-  for (int mb = 0; mb < MT; ++mb) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int c = 0; c < M::NC; ++c) {
-        float x = acc[mb][h][c];
-        x += __shfl_xor_sync(FULL, x, 1);
-        x += __shfl_xor_sync(FULL, x, 2);
-        acc[mb][h][c] = x;
-      }
-    }
-  }
-  __syncthreads();  // every column sum is read
-#pragma unroll
-  for (int mb = 0; mb < MT; ++mb) {
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      if (((2 * mb + h) & 3) != (lane & 3)) continue;
-      const int rr = wr * MT * 16 + 16 * mb + (lane >> 2) + 8 * h;
-#pragma unroll
-      for (int c = 0; c < M::NC; ++c) sm.part[wc][c][rr] = acc[mb][h][c];
-    }
-  }
-  __syncthreads();
-  float s[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-#pragma unroll
-  for (int q = 0; q < WARP_COLS; ++q) {
-#pragma unroll
-    for (int c = 0; c < M::NC; ++c) s[c] += sm.part[q][c][a];
-  }
-  if (M::FACTORED) {
-    const float4 p = reinterpret_cast<const float4*>(pos)[row];
-    oa[0] = s[0] - p.x * s[3];
-    oa[1] = s[1] - p.y * s[3];
-    oa[2] = s[2] - p.z * s[3];
-  } else {
-    const float sc = M::BOX ? w : 1.0f;
-    oa[0] = s[0] * sc;
-    oa[1] = s[1] * sc;
-    oa[2] = s[2] * sc;
+  float s[4];
+  i_side_sums<MODE, PP>(sm, acc, wr, wc, lane, a, s);
+  const size_t row = row0 + a;
+  if (row < static_cast<size_t>(n)) {
+    write_i_side<MODE>(out_part + (static_cast<size_t>(blockIdx.y) * n + row) * 3,
+                       s, pos, row, 1.0f);
   }
 }
 

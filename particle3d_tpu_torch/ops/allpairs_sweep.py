@@ -29,6 +29,12 @@ positions and r^2 pre-scaled by 1/w in wrap mode, wrap as dx - round(dx),
 gate d^2 > 1e-12 (wrap) or > 0 (walls) in box units, and restore d^2 with
 w^2 and the force sums with w.
 
+All three kernels run one tensor-core tile-pair sweep
+(``csrc/tile_pair_mma.cuh``). Each splits its work across a second grid
+dimension of partial sums that the wrapper adds in a fixed order: K3 the
+source set, K2 the steps k, K4 each receiver tile's run of worklist
+entries (``pairlist_splits``).
+
 Not carried over, as Mosaic rules of the TPU: tile sizes of 640/512/256
 and multiples of 128, the SMEM worklist bound ``_WLIST_MAX`` with its
 chunks, and quantum padding of worklists. The kernels' tile is
@@ -49,12 +55,14 @@ from .compaction import index_add_rows
 from .params import (LAW_IDS, PF_INV_W, PF_W, directional_scale, gated_scale,
                      pack_params, pair_parts, r2_gate)
 
-KERNEL_TILE = 128         # K2/K4 tile rows (csrc TILE)
-RECT_BLOCK = 128          # K3 receivers per block and sources per chunk
+KERNEL_TILE = 128         # K2-K4 tile rows (csrc TILE)
 KERNEL_WIDTHS = (8, 16)   # feature widths the kernels are built for
 TRI_MIN_N = 4 * 512       # same-set sweeps this large go to K2 (JAX dispatch)
 PACK_SHIFT = 15           # worklist entries are (i << 15) | j
 _BLOCKS_PER_SM = 4        # partial-sum splits aim at this many blocks per SM
+_RECT_BLOCKS_PER_SM = 16  # K3: four waves of its four resident blocks an SM
+PAIRLIST_SHARE = 4        # K4: worklist entries a block aims at (mean run)
+PAIRLIST_MAX_SPLITS = 16  # K4: most shares of a receiver tile's run
 # largest [b, t, t] temporary of the plain versions, in elements
 _REF_MAX_ELEMS = 1 << 24
 
@@ -72,9 +80,10 @@ def _library():
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.p3t_allpairs_rect.argtypes = [p, p, i, p, p, p, i, i, p, p, i, i, i, p]
     lib.p3t_allpairs_tri.argtypes = [p] * 6 + [i, i, i, p, p, i, p, i, i, p]
-    lib.p3t_allpairs_pairlist.argtypes = [p] * 7 + [i, i, p, p, p, i, i, p]
+    lib.p3t_allpairs_pairlist_spans.argtypes = ([p] * 7
+                                                + [i, i, p, p, i, p, i, i, p])
     for fn in (lib.p3t_allpairs_rect, lib.p3t_allpairs_tri,
-               lib.p3t_allpairs_pairlist):
+               lib.p3t_allpairs_pairlist_spans):
         fn.restype = ctypes.c_int
     return lib
 
@@ -121,10 +130,12 @@ def _params(params) -> np.ndarray:
     return pf
 
 
-def _splits(blocks: int, most: int, device) -> int:
-    """Partial-sum splits so that ``blocks * splits`` fills the card."""
+def _splits(blocks: int, most: int, device,
+            per_sm: int = _BLOCKS_PER_SM) -> int:
+    """Partial-sum splits so that ``blocks * splits`` reaches ``per_sm``
+    blocks an SM."""
     sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(most, -(-(_BLOCKS_PER_SM * sms) // blocks)))
+    return max(1, min(most, -(-(per_sm * sms) // blocks)))
 
 
 def _launch(name: str, fn, args, device, what: str, counts=None):
@@ -152,10 +163,13 @@ def _pad_rows(a, rows: int):
 
 # -- K3: one-sided rectangular sweep ---------------------------------------
 
-def rect_sweep(pos, u, src, v, r2row, params, law: str, wrap: bool):
+def rect_sweep(pos, u, src, v, r2row, params, law: str, wrap: bool, *,
+               splits: int | None = None):
     """K3: f32[N, 3] = sum over sources j of delta_ij * s(d2_ij, U_i . V_j),
     delta_ij = src_j - pos_i (minimum image in world units when ``wrap``),
-    gated by d2 < r2row[j] (r2row = -1 masks a source)."""
+    gated by d2 < r2row[j] (r2row = -1 masks a source). ``splits``: spans
+    of the source set, one partial sum each (default: enough blocks for
+    four waves)."""
     n, m, p = pos.shape[0], src.shape[0], u.shape[1]
     f = torch.float32
     _check(pos.device, pos=(pos, f, (n, 3)), u=(u, f, (n, p)),
@@ -167,8 +181,9 @@ def rect_sweep(pos, u, src, v, r2row, params, law: str, wrap: bool):
         raise ValueError("rect_sweep needs at least one receiver")
     pf = _params(params)
     lib = _library()
-    splits = _splits(-(-n // RECT_BLOCK), max(1, -(-m // RECT_BLOCK)),
-                     pos.device)
+    if splits is None:
+        splits = _splits(-(-n // KERNEL_TILE), max(1, -(-m // KERNEL_TILE)),
+                         pos.device, _RECT_BLOCKS_PER_SM)
     out = torch.empty((splits, n, 3), dtype=f, device=pos.device)
     _launch("allpairs_rect", lib.p3t_allpairs_rect,
             (pos.data_ptr(), u.data_ptr(), n, src.data_ptr(), v.data_ptr(),
@@ -336,12 +351,24 @@ def tri_sweep_ref(pos_p, u_p, v_p, r2row, imask, params, law: str,
     return out_a, out_b
 
 
+def pairlist_splits(nw: int, nt: int) -> int:
+    """K4's shares of each receiver tile's run of worklist entries: about
+    ``PAIRLIST_SHARE`` entries a block at the mean run ``nw / nt`` (known
+    on the host without a synchronisation), at most
+    ``PAIRLIST_MAX_SPLITS``. The longest run is not known without another
+    synchronisation, and it can be many times the mean (tiles across the
+    periodic seam are never culled), so the shares are small."""
+    return max(1, min(PAIRLIST_MAX_SPLITS, -(-nw // (nt * PAIRLIST_SHARE))))
+
+
 def pairlist_sweep(pos_p, u_p, v_p, r2row, imask, wi, wj, params, law: str,
-                   wrap: bool, t: int):
+                   wrap: bool, t: int, *, splits: int | None = None):
     """K4 over the worklist entries (wi[s], wj[s]) of receiver and source
     tiles, sorted by wi, with every tile's self entry present. Returns
     ``(out_a f32[np_, 3], out_b f32[W, 3, t])``: the i-side sums, and
-    entry s's j-side partial for tile wj[s]."""
+    entry s's j-side partial for tile wj[s]. ``splits``: shares of each
+    receiver tile's run, one block and one i-side partial each (default
+    ``pairlist_splits``)."""
     np_, p, nt = _check_tri(pos_p, u_p, v_p, r2row, imask, t)
     nw = wi.shape[0]
     _check(pos_p.device, wi=(wi, torch.int32, (nw,)),
@@ -352,19 +379,28 @@ def pairlist_sweep(pos_p, u_p, v_p, r2row, imask, wi, wj, params, law: str,
     _kernel_ready(pos_p.device, p, t)
     pf = _params(params)
     lib = _library()
-    row_start = torch.searchsorted(
-        wi, torch.arange(nt + 1, dtype=torch.int32, device=wi.device),
-        out_int32=True)
-    out_a = torch.empty((np_, 3), dtype=torch.float32, device=pos_p.device)
+    row_start = worklist_row_start(wi, nt)
+    if splits is None:
+        splits = pairlist_splits(nw, nt)
+    out_a = torch.empty((splits, np_, 3), dtype=torch.float32,
+                        device=pos_p.device)
     out_b = torch.empty((nw, 3, t), dtype=torch.float32, device=pos_p.device)
-    _launch("allpairs_pairlist", lib.p3t_allpairs_pairlist,
+    _launch("allpairs_pairlist", lib.p3t_allpairs_pairlist_spans,
             (pos_p.data_ptr(), u_p.data_ptr(), v_p.data_ptr(),
              r2row.data_ptr(), imask.data_ptr(), wj.data_ptr(),
              row_start.data_ptr(), nt, p, pf.ctypes.data_as(ctypes.c_void_p),
-             out_a.data_ptr(), out_b.data_ptr(), LAW_IDS[law],
+             out_a.data_ptr(), splits, out_b.data_ptr(), LAW_IDS[law],
              int(bool(wrap))),
-            pos_p.device, f"nt={nt}, entries={nw}")
-    return out_a, out_b
+            pos_p.device, f"nt={nt}, entries={nw}, splits={splits}")
+    return (out_a[0] if splits == 1 else out_a.sum(0)), out_b
+
+
+def worklist_row_start(wi, nt: int):
+    """int32 [nt + 1]: receiver tile i's entries of the sorted worklist
+    are [row_start[i], row_start[i + 1])."""
+    return torch.searchsorted(
+        wi, torch.arange(nt + 1, dtype=torch.int32, device=wi.device),
+        out_int32=True)
 
 
 def pairlist_sweep_ref(pos_p, u_p, v_p, r2row, imask, wi, wj, params,

@@ -9,12 +9,17 @@ C entry points. Each library a case needs is built from ``DIR`` with the
 port's nvcc flags into a temporary directory (registers and spills
 printed), and the case's wrapper is called once with the current build and
 once with the baseline's swapped in for its module's ``_library``: same
-wrapper, same operands. Calls are timed with CUDA events in turns
-(baseline, current, current, baseline). Outputs are compared bit for bit
-by default (K1: its live rows; its current dead rows must be exactly 0);
-a case whose builds differ in arithmetic (K2 and K5, redesigned on tensor
-cores) compares the forces instead, at ``chip_smoke.py``'s gates. A case
-that fails its comparison makes the run exit with 1. One JSON line per
+wrapper, same operands. A baseline from before K4's run shares (whose
+library has ``p3t_allpairs_pairlist``, with one i-side sum, in place of
+``p3t_allpairs_pairlist_spans``) is called through its own signature, and
+K3's baseline gets the span count of the wrapper before the tile-pair
+sweep (four blocks an SM). Calls are timed with CUDA
+events in turns (baseline, current, current, baseline). Outputs are
+compared bit for bit by default (K1: its live rows; its current dead rows
+must be exactly 0); a case whose builds differ in arithmetic (K2-K5, on
+the tensor-core tile-pair sweep) compares the forces instead, at
+``chip_smoke.py``'s gates. A case that fails its comparison makes the run
+exit with 1. One JSON line per
 case: ms of each build, the speed-up, the comparison and, where the case
 has one, the bound (``utils/bounds.py``; also with every operation at the
 FP32 rate, the count before the tensor-core redesign).
@@ -23,9 +28,11 @@ Cases (``CASES``): K1 at 262k (particle_life_large, grid 24, cap 32),
 262k cap 64, 1M (grid 40) and 8M in halo mode (the slab_8m carry on one
 rank, grid 68, cap 64); K2, K3 and K4 on N=32,768 scenes (particle life
 periodic and walled, Lennard-Jones on a jittered lattice); K2 at 262k
-(particle_life_large_allpairs); K4 on the culled rung's worklist at 262k
-(Morton-sorted particle_life_large); K5 exact and fast on the 32k particle
-life scene and at 262k with its ghosts.
+(particle_life_large_allpairs); K3 with 4,096 sampled receivers against
+its 262,144 sources (``k3_4k_262k``); K4 on the culled rung's worklist at
+262k (Morton-sorted particle_life_large), with the wrapper's shares of a
+run and with S = 1, 4, 8, 16 and 32 (``k4_262k_s<S>``); K5 exact and fast on
+the 32k particle life scene and at 262k with its ghosts.
 
 ``--sass KERNEL`` (repeatable) prints, for each build of each case's
 library and each kernel whose mangled name contains ``KERNEL``, the
@@ -61,10 +68,12 @@ K5_FAST_GATE = (1e-3, None)
 @dataclass
 class Case:
     """One wrapper call: ``run()`` returns its output (a tensor or a
-    tuple); ``pick`` the tensors to compare; ``check`` extra facts about
-    the current build's output; ``gate`` None for bit equality, else
-    (relative L2, max abs share) for the picked forces."""
+    tuple); ``run_base(lib)`` the baseline's, where it is not ``run()``
+    with ``lib`` swapped in; ``pick`` the tensors to compare; ``check``
+    extra facts about the current build's output; ``gate`` None for bit
+    equality, else (relative L2, max abs share) for the picked forces."""
     run: Callable
+    run_base: Callable | None = None
     pick: Callable = lambda out: out if isinstance(out, tuple) else (out,)
     check: Callable = lambda out: {}
     info: dict = field(default_factory=dict)
@@ -97,7 +106,7 @@ def twin(cur, base: ctypes.CDLL):
     entry points get the same signatures."""
     if isinstance(cur, ctypes.CDLL):
         for name, f in vars(cur).items():
-            if isinstance(f, cur._FuncPtr):
+            if isinstance(f, cur._FuncPtr) and hasattr(base, name):
                 g = getattr(base, name)
                 g.argtypes, g.restype = f.argtypes, f.restype
         return base
@@ -223,11 +232,37 @@ def _tile_scene(label):
 
 
 def _k3(label):
+    """K3 same-set on a 32k scene, or 4,096 sampled receivers against the
+    262,144 sources of particle_life_large_allpairs (chip_smoke.py phase
+    7); its forces at K2's gate. A baseline from before the tile-pair
+    sweep runs with the spans of the wrapper it was built with."""
+    from ..models import make_scene
     from ..ops import allpairs_sweep as A
+    from ..ops import forces as F
 
-    st, u, v, cfg = _tile_scene(label)
-    ops = A.rect_operands(st.positions, u, st.positions, v, cfg)
-    return Case(run=lambda: A.rect_sweep(*ops))
+    if label == "4k_262k":
+        st, cfg, _ = make_scene("particle_life_large_allpairs", seed=0,
+                                device="cuda")
+        u, v = F.pair_features(st, cfg)
+        gen = torch.Generator().manual_seed(3)
+        idx = torch.randperm(st.n, generator=gen)[:4096].cuda()
+        ops = A.rect_operands(st.positions[idx], u[idx], st.positions, v, cfg)
+    else:
+        st, u, v, cfg = _tile_scene(label)
+        ops = A.rect_operands(st.positions, u, st.positions, v, cfg)
+    n, m = ops[0].shape[0], ops[2].shape[0]
+    t = A.KERNEL_TILE
+    old = A._splits(-(-n // t), max(1, -(-m // t)), ops[0].device)
+    b = bound(n * m, ops_one_sided(u.shape[1], bool(cfg.wrap_forces)), 0)
+
+    def run_base(lib):
+        spans = None if _tile_pair_k3_k4(lib) else old
+        return run_with(A, lib, lambda: A.rect_sweep(*ops, splits=spans))
+
+    return Case(run=lambda: A.rect_sweep(*ops), run_base=run_base,
+                gate=K2_GATE,
+                info={"n": n, "m": m, "baseline_splits": old,
+                      "bound_ms": b[0], "bound_ms_fp32_only": b[2]})
 
 
 def _k2(label):
@@ -281,18 +316,76 @@ def _k5(label, fast):
                       "bound_ms_fp32_only": b[2]})
 
 
-def _k4(label):
+def _tile_pair_k3_k4(lib) -> bool:
+    """Whether a K2-K4 library has K3 and K4 on the tile-pair sweep (and
+    K4's run shares): the entry point ``p3t_allpairs_pairlist_spans``."""
+    return hasattr(lib, "p3t_allpairs_pairlist_spans")
+
+
+def _pairlist_single_sum(lib, ops, wi, wj, law, wrap):
+    """K4 through the entry point before the run shares,
+    ``p3t_allpairs_pairlist``: one block a receiver tile, one i-side sum."""
+    from ..ops import allpairs_sweep as A
+    from ..ops.params import LAW_IDS
+
+    f = lib.p3t_allpairs_pairlist
+    p, i = ctypes.c_void_p, ctypes.c_int
+    f.argtypes = [p] * 7 + [i, i, p, p, p, i, i, p]
+    f.restype = ctypes.c_int
+    np_, pw = ops[0].shape[0], ops[1].shape[1]
+    t = A.KERNEL_TILE
+    nt = np_ // t
+    out_a = torch.empty((np_, 3), dtype=torch.float32, device="cuda")
+    out_b = torch.empty((wi.shape[0], 3, t), dtype=torch.float32,
+                        device="cuda")
+    pf = A._params(ops[5])
+    A._launch("allpairs_pairlist", f,
+              (*(x.data_ptr() for x in ops[:5]), wj.data_ptr(),
+               A.worklist_row_start(wi, nt).data_ptr(), nt, pw,
+               pf.ctypes.data_as(ctypes.c_void_p), out_a.data_ptr(),
+               out_b.data_ptr(), LAW_IDS[law], int(wrap)),
+              ops[0].device, "baseline")
+    return out_a, out_b
+
+
+def _k4(label, splits=None):
+    """K4 over the survival worklist of a 32k scene or of the culled rung's
+    262k scene, ``splits`` shares a run (None: the wrapper's); a baseline
+    without the run shares through its own entry point; forces at K2's
+    gate."""
     from ..ops import allpairs_sweep as A
 
     st, u, v, cfg = _tile_scene(label)
     t = A.KERNEL_TILE
     ops = A.tri_operands(st.positions, u, v, cfg, t)
     np_ = ops[0].shape[0]
-    mask = A.pair_survival_mask(A._pad_rows(st.positions, np_), st.n, t,
-                                np_ // t, cfg)
-    wi, wj = A.unpack_worklist(A.build_pair_worklist(mask, np_ // t)[0])
-    args = (cfg.force_law, bool(cfg.wrap_forces), t)
-    return Case(run=lambda: A.pairlist_sweep(*ops[:5], wi, wj, ops[5], *args))
+    nt = np_ // t
+    mask = A.pair_survival_mask(A._pad_rows(st.positions, np_), st.n, t, nt,
+                                cfg)
+    wp, count = A.build_pair_worklist(mask, nt)
+    wi, wj = A.unpack_worklist(wp)
+    runs = A.worklist_row_start(wi, nt).diff()
+    law, wrap = cfg.force_law, bool(cfg.wrap_forces)
+    n = st.n
+    pairs = (count - nt) * t * t + nt * t * (t - 1) / 2
+    b = bound(pairs, ops_two_sided(u.shape[1], wrap), 0)
+
+    def run():
+        return A.pairlist_sweep(*ops[:5], wi, wj, ops[5], law, wrap, t,
+                                splits=splits)
+
+    def run_base(lib):
+        if _tile_pair_k3_k4(lib):
+            return run_with(A, lib, run)
+        return _pairlist_single_sum(lib, ops, wi, wj, law, wrap)
+
+    return Case(
+        run=run, run_base=run_base,
+        pick=lambda out: (A.pairlist_forces(*out, wj)[:n],), gate=K2_GATE,
+        info={"n": n, "tile_pairs": count,
+              "splits": splits or A.pairlist_splits(count, nt),
+              "mean_run": count / nt, "longest_run": int(runs.max()),
+              "bound_ms": b[0], "bound_ms_fp32_only": b[2]})
 
 
 # name -> (module of the wrapper, the case's builder)
@@ -306,7 +399,10 @@ CASES = {
        for k, b in (("k2", _k2), ("k3", _k3), ("k4", _k4))
        for s in ("particle_life", "walled", "lj")},
     "k2_262k": ("allpairs_sweep", lambda: _k2("262k")),
+    "k3_4k_262k": ("allpairs_sweep", lambda: _k3("4k_262k")),
     "k4_262k": ("allpairs_sweep", lambda: _k4("262k")),
+    **{f"k4_262k_s{s}": ("allpairs_sweep", lambda s=s: _k4("262k", s))
+       for s in (1, 4, 8, 16, 32)},
     **{f"k5_{n}_{m}": ("allpairs_mxu_sweep",
                        lambda n=n, f=(m == "fast"): _k5(
                            "262k" if n == "262k" else "particle_life", f))
@@ -380,8 +476,10 @@ def within(got, want, gate) -> dict:
 
 
 def compare(case: Case, module, base_lib, reps):
+    run_base = ((lambda: case.run_base(base_lib)) if case.run_base else
+                (lambda: run_with(module, base_lib, case.run)))
     cur_out = case.run()
-    base_out = run_with(module, base_lib, case.run)
+    base_out = run_base()
     torch.cuda.synchronize()
     a, b = case.pick(cur_out), case.pick(base_out)
     equal = all(torch.equal(x, y) for x, y in zip(a, b))
@@ -394,9 +492,8 @@ def compare(case: Case, module, base_lib, reps):
     del cur_out, base_out, a, b
     times = {"base": [], "cur": []}
     for which in ("base", "cur", "cur", "base"):
-        fn = case.run if which == "cur" else (
-            lambda: run_with(module, base_lib, case.run))
-        times[which].append(_ms(fn, reps))
+        times[which].append(_ms(case.run if which == "cur" else run_base,
+                                reps))
     ms_b, ms_c = np.mean(times["base"]), np.mean(times["cur"])
     check = case.check(case.run())
     rec = {**case.info, "baseline_ms": times["base"], "current_ms":

@@ -1,5 +1,5 @@
-"""K2's and K5's CUDA source compiled for the CPU and held to their plain
-versions.
+"""K2's, K3's, K4's and K5's CUDA source compiled for the CPU and held to
+their plain versions.
 
 ``particle3d_tpu_torch/csrc/allpairs_sweep.cu`` and ``allpairs_mxu.cu``
 (their shared tile-pair sweep ``tile_pair_mma.cuh``) are built with g++
@@ -12,7 +12,10 @@ entry points in a child process (``_cuda_emulated``). This checks the
 logic without a GPU: the 3xTF32 split and fragment ownership, the pairs
 each lane evaluates, the deferred lane sums, k-spans, odd and even tile
 counts, the k = 0 diagonal, mask mode, padded rows under Lennard-Jones
-and K5's dead ghost tiles. Tolerances are ``chip_smoke.py``'s (the sums'
+and K5's dead ghost tiles; K4's shares of a receiver tile's run (split
+runs, empty shares), self entries and lower-triangular worklists; K3's
+one-sided sweep with ragged receiver and source tiles, d2 = 0 self pairs
+and source spans. Tolerances are ``chip_smoke.py``'s (the sums'
 order differs from the plain versions'). Skipped where no g++ with
 C++20's ``<barrier>`` is installed.
 """
@@ -36,13 +39,15 @@ K5_TOL = (3e-5, 1e-4)
 FAST_TOL = (None, 3e-3)
 TRI_SIG = "p" * 6 + "iiippipiip"
 MXU_SIG = "p" * 5 + "iippipiip"
+PAIRLIST_SIG = "p" * 7 + "iippipiip"
+RECT_SIG = "ppipppiippiiip"
 
 
 @pytest.fixture(scope="module")
 def libs(tmp_path_factory):
     """K2-K4's and K5's sources built for the CPU (in parallel), loaded in
-    one child process: (tri entry point, mxu entry point) as callables on
-    numpy arrays."""
+    one child process: the (tri, mxu, pairlist, rect) entry points as
+    callables on numpy arrays."""
     paths = build(tmp_path_factory.mktemp("allpairs_emulated"),
                   {"allpairs_sweep": 3, "allpairs_mxu": 1})
     if paths is None:
@@ -53,7 +58,10 @@ def libs(tmp_path_factory):
         return lambda args, outs: emu.call(paths[lib], fn, sig, args, outs)
 
     yield (entry("allpairs_sweep", "p3t_allpairs_tri", TRI_SIG),
-           entry("allpairs_mxu", "p3t_allpairs_mxu", MXU_SIG))
+           entry("allpairs_mxu", "p3t_allpairs_mxu", MXU_SIG),
+           entry("allpairs_sweep", "p3t_allpairs_pairlist_spans",
+                 PAIRLIST_SIG),
+           entry("allpairs_sweep", "p3t_allpairs_rect", RECT_SIG))
     emu.close()
 
 
@@ -218,3 +226,144 @@ def test_k5_walled_wide_features_matches_plain(libs):
     st = _uniform(800, 6.0, 8, species=12)
     got, want, _, _ = _k5(libs[1], st, cfg, False, None)
     _gate(got, want, K5_TOL)
+
+
+def _k4(pairlist, st, cfg, splits, lower=False):
+    """K4's C entry point and its plain version on the same operands, over
+    the upper-triangular survival worklist (or, ``lower``, every pair j <= i,
+    so that the padded tile is a receiver): (forces, plain forces, out_b,
+    self entries, runs)."""
+    u, v = pair_features(st, cfg)
+    ops = A.tri_operands(st.positions, u, v, cfg, T)
+    np_, p = ops[0].shape[0], ops[1].shape[1]
+    nt = np_ // T
+    if lower:
+        wi, wj = (torch.tensor(x, dtype=torch.int32) for x in
+                  zip(*[(i, j) for i in range(nt) for j in range(i + 1)]))
+    else:
+        mask = A.pair_survival_mask(A._pad_rows(st.positions, np_), st.n, T,
+                                    nt, cfg)
+        wi, wj = A.unpack_worklist(A.build_pair_worklist(mask, nt)[0])
+    row_start = A.worklist_row_start(wi, nt)
+    nw = wi.shape[0]
+    out_a = np.full((splits, np_, 3), np.nan, np.float32)
+    out_b = np.full((nw, 3, T), np.nan, np.float32)
+    err, (out_a, out_b) = pairlist(
+        [*(x.numpy() for x in ops[:5]), wj.numpy(), row_start.numpy(), nt, p,
+         ops[5], out_a, splits, out_b, LAW_IDS[cfg.force_law],
+         int(cfg.wrap_forces), None], (10, 12))
+    assert err == 0
+    out_a, out_b = torch.from_numpy(out_a), torch.from_numpy(out_b)
+    args = (cfg.force_law, bool(cfg.wrap_forces), T)
+    want = A.pairlist_sweep_ref(*ops[:5], wi, wj, ops[5], *args)
+    n = st.n
+    return (A.pairlist_forces(out_a.sum(0), out_b, wj)[:n],
+            A.pairlist_forces(*want, wj)[:n], out_b, wi == wj,
+            row_start.diff())
+
+
+@pytest.mark.parametrize("label,n,world,splits", [
+    ("particle_life", 600, 6.0, 3),   # 5 tiles: odd nt, ragged last tile;
+                                      # tile 0's run of 5 split in shares of 2
+    ("bar", 1200, 30.0, 8),           # culled: runs shorter than 8 shares
+    ("walled", 1000, 6.0, 2),         # 8 tiles, world units
+    ("lennard_jones", 900, 6.0, 1),   # one share a tile
+])
+def test_k4_matches_plain(libs, label, n, world, splits):
+    cfg = reference_config(world_size=world)
+    st = _uniform(n, world, 9)
+    if label == "bar":  # a periodic bar 3 thick along x: Morton tiles cull
+        pos = st.positions.numpy()
+        pos[:, 1:] = pos[:, 1:] * 0.1 + 2.0  # inside one Morton octant in y, z
+        st = _state(pos, st.species.numpy())
+    elif label == "walled":
+        cfg = cfg.replace(boundary="clamp", wrap_forces=False)
+    elif label == "lennard_jones":
+        cfg = cfg.replace(force_law="lennard_jones", particle_effect_radius=0.5,
+                          lj_sigma=0.1, lj_epsilon=0.5)
+        lin = (np.arange(10) + 0.5) * 0.6 - 3.0
+        g = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1)
+        g = g.reshape(-1, 3) + np.random.default_rng(2).normal(0, 0.05, (1000, 3))
+        st = _state(g[:n], np.zeros(n))
+    keys = A.morton_keys(st.positions, cfg.world_size)
+    order = torch.argsort(keys, stable=True)
+    st = _state(st.positions[order].numpy(), st.species[order].numpy())
+    got, want, out_b, self_entry, runs = _k4(libs[2], st, cfg, splits)
+    _gate(got, want, K2_TOL)
+    assert (out_b[self_entry] == 0).all()
+    if splits > 1:  # some run is split, and (culled) some share is empty
+        assert int(runs.max()) > -(-int(runs.max()) // splits)
+    if label == "bar":  # culled, with runs shorter than the shares
+        assert int(runs.sum()) < runs.numel() * (runs.numel() + 1) // 2
+        assert int(runs.min()) < splits
+        assert int(runs.sum()) < runs.numel() * (runs.numel() + 1) // 2
+
+
+def test_k4_padded_rows_at_origin_lower_triangular(libs):
+    """Phase 9's scene: 84 padded rows at the origin and a particle 1e-4
+    from them under Lennard-Jones, over the lower-triangular worklist (the
+    padded tile a receiver, entries j < i), in two shares a tile."""
+    cfg = SimConfig(force_law="lennard_jones", lj_sigma=0.1, lj_epsilon=0.5,
+                    particle_effect_radius=0.5, world_size=10.0,
+                    wrap_forces=True).validate()
+    lin = (np.arange(7) - 3) * 0.45 + 0.2
+    g = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1).reshape(-1, 3)
+    pos = np.concatenate([[[1e-4, 0.0, 0.0]], g[:299]
+                          + np.random.default_rng(12).normal(0, 0.01, (299, 3))])
+    got, want, out_b, self_entry, _ = _k4(libs[2], _state(pos, np.zeros(300)),
+                                          cfg, 2, lower=True)
+    _gate(got, want, K2_TOL)
+    assert torch.isfinite(out_b).all() and (out_b[self_entry] == 0).all()
+
+
+def _k3(rect, rec, src, cfg, splits):
+    """K3's C entry point and its plain version: receivers ``rec`` against
+    the sources ``src`` (states): (forces, plain forces)."""
+    u = pair_features(rec, cfg)[0]
+    v = pair_features(src, cfg)[1]
+    ops = A.rect_operands(rec.positions, u, src.positions, v, cfg)
+    n, m, p = ops[0].shape[0], ops[2].shape[0], ops[1].shape[1]
+    out = np.full((splits, n, 3), np.nan, np.float32)
+    err, (out,) = rect(
+        [ops[0].numpy(), ops[1].numpy(), n, *(x.numpy() for x in ops[2:5]), m,
+         p, ops[5], out, splits, LAW_IDS[cfg.force_law], int(cfg.wrap_forces),
+         None], (9,))
+    assert err == 0
+    return torch.from_numpy(out).sum(0), A.rect_sweep_ref(*ops)
+
+
+@pytest.mark.parametrize("label,n,m,splits", [
+    ("particle_life", 300, 700, 3),   # ragged receiver and source tiles
+    ("same_set", 500, 500, 2),        # d2 = 0 on every receiver's own pair
+    ("lennard_jones", 400, 400, 1),   # same set, on a lattice
+    ("gravity", 260, 390, 2),         # split masses
+    ("walled", 300, 640, 4),          # world units, whole source tiles
+    ("wide", 200, 300, 1),            # 12 species: feature width 16
+])
+def test_k3_matches_plain(libs, label, n, m, splits):
+    cfg = reference_config(world_size=6.0)
+    rec, src = _uniform(n, 6.0, 10), _uniform(m, 6.0, 11)
+    if label in ("same_set", "lennard_jones"):
+        src = rec
+    if label == "walled":
+        cfg = cfg.replace(boundary="clamp", wrap_forces=False)
+    elif label == "lennard_jones":
+        cfg = cfg.replace(force_law="lennard_jones", particle_effect_radius=0.5,
+                          lj_sigma=0.1, lj_epsilon=0.5)
+        lin = (np.arange(8) + 0.5) * 0.6 - 3.0
+        g = np.stack(np.meshgrid(lin, lin, lin, indexing="ij"), -1)
+        g = g.reshape(-1, 3) + np.random.default_rng(2).normal(0, 0.05, (512, 3))
+        rec = src = _state(g[:n], np.zeros(n))
+    elif label == "gravity":
+        cfg = cfg.replace(force_law="gravity", gravity_softening=0.05,
+                          particle_effect_radius=2.0)
+        rng = np.random.default_rng(4)
+        rec = _state(rec.positions.numpy(), np.zeros(n),
+                     masses=rng.uniform(0.5, 2.0, n))
+        src = _state(src.positions.numpy(), np.zeros(m),
+                     masses=rng.uniform(0.5, 2.0, m))
+    elif label == "wide":
+        cfg = _wide(cfg)
+        rec, src = _uniform(n, 6.0, 12, species=12), _uniform(m, 6.0, 13,
+                                                               species=12)
+    _gate(*_k3(libs[3], rec, src, cfg, splits), K2_TOL)

@@ -146,6 +146,17 @@ def test_masks_and_worklists_equal_jax(kind, kw):
             wp.numpy(), np.concatenate([c[0] for c in chunks])[:count])
 
 
+def test_worklist_runs_and_k4_shares():
+    """K4's run starts are each receiver tile's first entry (empty runs
+    included), and its shares follow the mean run: about 4 entries a block,
+    1 to 16 shares."""
+    wi = torch.tensor([0, 0, 0, 2, 2, 3], dtype=torch.int32)
+    assert A.worklist_row_start(wi, 5).tolist() == [0, 3, 3, 5, 6, 6]
+    assert A.pairlist_splits(2048, 2048) == 1
+    assert A.pairlist_splits(15309, 256) == 15      # the 32k scene's mean 60
+    assert A.pairlist_splits(142203, 2048) == 16    # 262k: mean 69, capped
+
+
 @pytest.mark.parametrize("kind,kw", KINDS)
 def test_culled_and_pairlist_forces_match_tri(kind, kw):
     cfg = _cfg(**kw)
