@@ -102,7 +102,33 @@ exits non-zero:
      its layout (cap 16); the XLA-style `celllist` backend on CUDA tensors
      against the K2 path on a 4,096-particle block of the lj_gas lattice;
      fresh_celllist_forces at cell_grid=2 against the plain all-pairs
-     sweep.
+     sweep; then the cadenced path as the JAX bench times Lennard-Jones:
+     simulate_cadenced, 32 steps, layout rebuilt every 16 (one K1 launch
+     a step, nothing dropped, drift inside the budget of 0.25, a
+     bit-identical rerun), against simulate_dense from the same state
+     (max |dpos| / world <= 1e-5), ms/step beside the dense path's;
+ 18. the app path at full width, particle_life_large (N=262,144, grid
+     24): layout_forces on a fresh cap-64 layout bit-identical to
+     fresh_celllist_forces (no sidecar), dense_forces exactly 0 on dead
+     slots; simulate_cadenced at cap 64, 16 steps, rebuilt every 4, as in
+     phase 17 against simulate_dense (the drift of an 8-step cadence is
+     printed, not gated: from rest it exceeds the budget); a SimulationApp at the preset's cap
+     32: the rows a cap-32 build drops, a first 4-step batch that rewinds
+     and escalates, a cadenced 4-step batch, two 1-step carry batches
+     (simulate_dense_carry; the second reuses the kept layout: no dense
+     build), one K1 launch a step and masked 0 in each, ms per batch; the
+     terminal fallback: phase 11's blob in an app with max_cap 64 escalates,
+     then commits on simulate_culled (K4), bit-identical to simulate_culled
+     from the same start; app.render at 640x480, both methods, against
+     the same frame rendered on the CPU (>= 99.9% of pixels equal),
+     ms/frame; app.save, SimulationApp.load and four more steps against
+     the uninterrupted app (bit-identical when both rebuild their layout);
+ 19. the HTTP server (ThreadingHTTPServer on 127.0.0.1, a free port) on
+     phase 18's app: GET / and /gl, /config, /positions.bin (8 + 13 N
+     bytes, decoding to the app's positions and species), /frame.png at
+     320x240 (its IDAT decoding to app.render), POST /control (set_drag,
+     keys; /config shows the drag), /metrics (the step advanced); wall ms
+     per request.
 
 Tolerance for every force comparison: relative L2 error <= 1e-5 and max
 abs error <= 1e-4 * max|F|. Between a kernel and its plain version only
@@ -142,6 +168,7 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+import numpy as np
 import torch
 
 from particle3d_tpu_torch.utils.bounds import (bound, ops_mxu, ops_one_sided,
@@ -1455,7 +1482,7 @@ def phase_mxu_path():
 def phase_lj_gas():
     from particle3d_tpu_torch.__main__ import main as cli
     from particle3d_tpu_torch.config import reference_config
-    from particle3d_tpu_torch.engine.step import pair_accel
+    from particle3d_tpu_torch.engine.step import pair_accel, warmup
     from particle3d_tpu_torch.models import make_scene
     from particle3d_tpu_torch.ops import forces as F
     from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
@@ -1485,9 +1512,13 @@ def phase_lj_gas():
         raise AssertionError(f"lj_gas run record not finite: {rec}")
     ms = _window_ms_per_step("lj_gas", [c for _, c, _ in hist
                                         if isinstance(c, int)][-1])
-    st, cfg, _ = make_scene("lj_gas", seed=0, device=DEVICE)
+    st, cfg, dt = make_scene("lj_gas", seed=0, device=DEVICE)
     _sweep_case("K1 on the lj_gas layout (Lennard-Jones, cap 16)", st, cfg,
                 reps=5)
+    # the cadenced path, as the JAX bench times Lennard-Jones
+    cad = _cadenced_check("lj_gas", warmup(st, cfg), cfg, dt, 32, 16, 1e-5)
+    log(f"  lj_gas: cadenced {cad:.3f} ms/step against the dense path's "
+        f"{ms:.3f} ms/step")
 
     # the XLA-style cell list on the card: a 16^3 block of the lj_gas
     # lattice (spacing 0.49 < the 0.5 cutoff; the N=4,096 preset's lattice
@@ -1520,6 +1551,343 @@ def phase_lj_gas():
     return rec, ms
 
 
+def _pos_gap(got, want, world):
+    """max |dpos| (minimum image) over the world size."""
+    from particle3d_tpu_torch.ops.forces import min_image
+
+    return min_image(got.positions - want.positions,
+                     world).abs().max().item() / world
+
+
+def _cadenced_check(label, st, cfg, dt, steps, rebuild_every, gap_tol):
+    """simulate_cadenced against simulate_dense from the same state: one K1
+    launch a step, nothing dropped, drift inside the budget, finite, and
+    positions within ``gap_tol`` of the world; returns ms/step."""
+    from particle3d_tpu_torch.engine.step import simulate_cadenced, simulate_dense
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.ops.celllist_sweep import drift_budget
+
+    world = float(cfg.world_size)
+    sync()
+    reset_kernel_launches()
+    out, drift, dropped = simulate_cadenced(st, cfg, dt, steps,
+                                            rebuild_every=rebuild_every)
+    sync()
+    _expect(f"{label}: simulate_cadenced, {steps} steps", kernel_launches(),
+            {"celllist_sweep": steps})
+    budget = drift_budget(cfg, cfg.cell_grid)
+    log(f"  {label}: dropped {int(dropped)}, max drift {float(drift):.6f} "
+        f"(budget {budget:.6f})")
+    if int(dropped) != 0 or not float(drift) < budget:
+        raise AssertionError(f"{label}: cadenced window not exact")
+    _finite(label, out)
+    ref, (_, mis) = simulate_dense(st, cfg, dt, steps)
+    gap = _pos_gap(out, ref, world)
+    log(f"  {label}: max |dpos| / world against simulate_dense {gap:.3e} "
+        f"(bound {gap_tol:g}; the two layouts order the sums differently)")
+    if int(mis) != 0 or not gap <= gap_tol:
+        raise AssertionError(f"{label}: cadenced trajectory off simulate_dense")
+    ms, again = timed_ms(lambda: simulate_cadenced(
+        st, cfg, dt, steps, rebuild_every=rebuild_every)[0], 1)
+    _bit_identical(f"{label}: rerun", (out.positions, out.velocities),
+                   (again.positions, again.velocities))
+    log(f"  {label}: {ms / steps:.3f} ms/step ({steps}-step window, layout "
+        f"built every {rebuild_every} steps, CUDA events)")
+    return ms / steps
+
+
+def _timed_batch(app, steps):
+    """One app batch, its wall ms from the app's own update timer (the
+    batch ends with the card synchronised)."""
+    with app.update_timer:
+        app.run_steps(steps)
+    return app.update_timer.last_s * 1e3
+
+
+def _app_batch(label, app, steps, k1_launches, branch, builds=None,
+               counter=None):
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    sync()
+    reset_kernel_launches()
+    n_builds = len(counter) if counter is not None else 0
+    ms = _timed_batch(app, steps)
+    _expect(f"{label}", kernel_launches(), {"celllist_sweep": k1_launches})
+    if builds is not None and len(counter) - n_builds != builds:
+        raise AssertionError(f"{label}: {len(counter) - n_builds} dense "
+                             f"layout builds, expected {builds}")
+    if app.capacity_masked != 0:
+        raise AssertionError(f"{label}: capacity_masked {app.capacity_masked}")
+    if (app._dense is None) != (branch == "cadenced"):
+        raise AssertionError(f"{label}: not on the {branch} branch")
+    _finite(label, app.state)
+    log(f"  {label}: {ms:.3f} ms for the batch (update_timer), capacity "
+        f"{app.metrics()['cell_capacity']}, masked 0")
+    return ms
+
+
+APP_CK = "build/chip_smoke/app_checkpoint.npz"
+
+
+def phase_app():
+    """The app path at full width (particle_life_large, N=262,144)."""
+    import os
+
+    from particle3d_tpu_torch.app.driver import SimulationApp
+    from particle3d_tpu_torch.engine.step import simulate_cadenced, simulate_culled
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import celllist_dense as D
+    from particle3d_tpu_torch.ops import celllist_sweep as S
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.ops import forces as F
+    from particle3d_tpu_torch.render.splat import render_frame
+    from particle3d_tpu_torch.state import to_device
+
+    log(f"[18] the app path: particle_life_large, N={N_LARGE}")
+    st, cfg, dt = make_scene("particle_life_large", seed=0, n=N_LARGE,
+                             device=DEVICE)
+    nsc = cfg.cell_grid
+    log(f"  world {float(cfg.world_size):g}, grid {nsc}, preset cap "
+        f"{cfg.cell_capacity}")
+    c64 = cfg.replace(cell_capacity=64, overflow_capacity=0)
+    u, v = F.pair_features(st, c64)
+    lay = S.build_layout(st.positions, u, v, c64, nsc, 64)
+    placed = int((lay.slot_particle >= 0).sum())
+    got = S.layout_forces(lay, st.positions, c64, nsc, 64)
+    want = S.fresh_celllist_forces(st.positions, u, v, c64)
+    if placed != N_LARGE or not torch.equal(got, want):
+        raise AssertionError(f"layout_forces at cap 64 ({placed} placed) is "
+                             f"not bit-identical to fresh_celllist_forces")
+    log(f"  layout_forces (cap 64, {placed} placed) bit-identical to "
+        f"fresh_celllist_forces (overflow_capacity=0)")
+    slot = lay.slot_particle.reshape(-1)
+    f_slots = S.dense_forces(lay, torch.where(
+        (slot >= 0)[:, None], st.positions[slot.clamp(min=0)], 0.0), c64, nsc, 64)
+    dead = f_slots[slot < 0]
+    if not bool((dead == 0).all()):
+        raise AssertionError("dense_forces: dead slots are not exactly 0")
+    log(f"  dense_forces: {dead.shape[0]} dead slots, all exactly 0")
+    c64w = cfg.replace(cell_capacity=64)
+    # from rest, the scene's particles outrun an 8-step cadence's budget
+    # (0.3885 against 0.3333 on the H100): printed, not gated; the
+    # checked window rebuilds every 4 steps, the app's batch
+    _, drift8, _ = simulate_cadenced(st, c64w, dt, STEPS, rebuild_every=8)
+    log(f"  rebuilt every 8 steps: max drift {float(drift8):.6f} against the "
+        f"budget {S.drift_budget(c64w, nsc):.6f} (not gated)")
+    cad_ms = _cadenced_check("particle_life_large cap 64", st, c64w, dt,
+                             STEPS, 4, 1e-5)
+
+    drop32 = N_LARGE - int((S.build_layout(st.positions, u, v, cfg, nsc, 32)
+                            .slot_particle >= 0).sum())
+    log(f"  a cap-32 layout build drops {drop32} of {N_LARGE} rows")
+    builds = []
+    real_build = D.build_dense
+
+    def counting_build(*a, **kw):
+        builds.append(1)
+        return real_build(*a, **kw)
+
+    D.build_dense = counting_build
+    try:
+        app = SimulationApp(st, cfg, update_rate=1.0 / dt, device=DEVICE)
+        start = app.state
+        sync()
+        reset_kernel_launches()
+        ms_first = _timed_batch(app, 4)
+        rung = app._cap_escalated
+        launches = kernel_launches()["celllist_sweep"]
+        log(f"  first batch (4 steps, cadenced): committed at capacity "
+            f"{rung or cfg.cell_capacity}, K1 launches {launches} (4 a try), "
+            f"{ms_first:.3f} ms incl. rewinds")
+        tries = (rung // cfg.cell_capacity).bit_length() if rung else 1
+        if (rung is None) != (drop32 == 0) or launches != 4 * tries:
+            raise AssertionError(f"the first batch did not rewind and "
+                                 f"escalate: rung {rung}, {launches} launches")
+        if app.capacity_masked != 0 or app._dense is not None:
+            raise AssertionError("first batch: masked, or not cadenced")
+        ms_cad = _app_batch("cadenced batch, 4 steps", app, 4, 4, "cadenced")
+        ms_c1 = _app_batch("carry batch, 1 step (builds the layout)", app, 1,
+                           1, "carry", builds=1, counter=builds)
+        ms_c2 = _app_batch("carry batch, 1 step (kept layout)", app, 1, 1,
+                           "carry", builds=0, counter=builds)
+    finally:
+        D.build_dense = real_build
+
+    log(f"  terminal fallback: {N_BLOB} particles in one cell, no sidecar, "
+        f"max_cap 64")
+    gen = torch.Generator().manual_seed(8)
+    pos = st.positions.clone()
+    w = float(cfg.world_size)
+    cell = w / nsc
+    centre = -w / 2 + (nsc // 2 + 0.5) * cell
+    pos[:N_BLOB] = (centre + (torch.rand(N_BLOB, 3, generator=gen) - 0.5)
+                    * 0.9 * cell).to(DEVICE)
+    blob_cfg = cfg.replace(overflow_capacity=0)
+    blob = SimulationApp(st.replace(positions=pos), blob_cfg,
+                         update_rate=1.0 / dt, device=DEVICE)
+    blob.max_cap = 64
+    b0 = blob.state
+    sync()
+    reset_kernel_launches()
+    ms_fb = _timed_batch(blob, 2)
+    got = {k: c for k, c in kernel_launches().items() if c}
+    log(f"  fallback batch (2 steps): launches {got}, {ms_fb:.3f} ms incl. "
+        f"the rewound tries")
+    if not blob._cell_fallback or got.get("allpairs_pairlist", 0) < 1:
+        raise AssertionError("the app did not fall back to simulate_culled")
+    _finite("fallback batch", blob.state)
+    want, _ = simulate_culled(b0, blob_cfg, np.float32(1.0 / blob.update_rate),
+                              2, window=2)
+    _bit_identical("fallback batch against simulate_culled",
+                   (blob.state.positions, blob.state.velocities),
+                   (want.positions, want.velocities))
+    del blob, b0, want
+
+    log(f"  render 640x480 at N={N_LARGE}")
+    render_ms = {}
+    host = to_device(app.state, "cpu")
+    for method in ("dilate", "scatter"):
+        img = app.render(640, 480, method=method)
+        lit = float((img != img[0, 0]).any(-1).mean())
+        ref = render_frame(host.positions, host.species, app.cfg, app.camera,
+                           640, 480, method=method).numpy()
+        same = float((img == ref).all(-1).mean())
+        ms, _ = timed_ms(lambda: render_frame(
+            app.state.positions, app.state.species, app.cfg, app.camera, 640,
+            480, method=method), 10)
+        log(f"  {method}: {img.shape} {img.dtype}, {lit:.4f} of pixels lit, "
+            f"{same:.6f} equal to the CPU render, {ms:.3f} ms/frame (CUDA "
+            f"events, mean of 10), app.render {app.frame_timer.last_s * 1e3:.3f}"
+            f" ms incl. the copy to the host")
+        if (img.shape != (480, 640, 3) or img.dtype != np.uint8 or lit <= 0.01
+                or same < 0.999):
+            raise AssertionError(f"render {method}: wrong frame")
+        render_ms[method] = ms
+
+    os.makedirs(os.path.dirname(APP_CK), exist_ok=True)
+    app.save(APP_CK)
+    other = SimulationApp.load(APP_CK, device=DEVICE)
+    if other.step_index != app.step_index:
+        raise AssertionError("checkpoint: step_index not restored")
+    app.run_steps(4)
+    other.run_steps(4)
+    if app._dense is None and other._dense is None:
+        _bit_identical("checkpoint: 4 cadenced steps, loaded app against the "
+                       "uninterrupted one (both rebuild from the same state)",
+                       (other.state.positions, other.state.velocities),
+                       (app.state.positions, app.state.velocities))
+    else:
+        gap = _pos_gap(other.state, app.state, w)
+        log(f"  checkpoint: 4 carry steps, kept layout against a fresh "
+            f"build: max |dpos| / world {gap:.3e}")
+        if not gap <= 1e-5:
+            raise AssertionError("checkpoint: resumed app diverged")
+    del other
+    return {"cadenced_ms_per_step": cad_ms, "first_batch_ms": ms_first,
+            "cadenced_batch_ms": ms_cad, "carry_batch_ms": (ms_c1, ms_c2),
+            "render_ms": render_ms}, app
+
+
+def _request(url, data=None):
+    """(body, content type, wall ms) of one request."""
+    import urllib.request
+
+    req = urllib.request.Request(url, data=data,
+                                 method="POST" if data is not None else "GET")
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=300) as r:
+        body, ctype = r.read(), r.headers.get("Content-Type")
+    return body, ctype, (time.perf_counter() - t0) * 1e3
+
+
+def _png_pixels(body):
+    """uint8 [H, W, 3] of a one-IDAT 8-bit RGB PNG with filter-0 rows."""
+    import struct
+    import zlib
+
+    if body[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError("/frame.png: no PNG signature")
+    chunks, at = {}, 8
+    while at < len(body):
+        (length,) = struct.unpack(">I", body[at:at + 4])
+        chunks[body[at + 4:at + 8]] = body[at + 8:at + 8 + length]
+        at += 12 + length
+    w, h, depth, colour = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, colour) != (8, 2):
+        raise AssertionError(f"/frame.png: depth {depth}, colour type {colour}")
+    raw = np.frombuffer(zlib.decompress(chunks[b"IDAT"]), np.uint8)
+    rows = raw.reshape(h, 1 + 3 * w)
+    if rows[:, 0].any():
+        raise AssertionError("/frame.png: a row is not filter 0")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def phase_server(app):
+    """The HTTP server on a thread, answering the phase 18 app's requests."""
+    import threading
+
+    from particle3d_tpu_torch.app import server
+
+    n = app.state.n
+    log(f"[19] the HTTP server on the card: N={n}")
+    httpd = server.make_server(app, port=0)
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    times = {}
+    try:
+        for page in ("/", "/gl"):
+            body, ctype, times[page] = _request(url + page)
+            if ctype != "text/html" or b"particle3d-tpu" not in body:
+                raise AssertionError(f"{page}: not the app's page")
+        body, _, times["/config"] = _request(url + "/config")
+        cfg0 = json.loads(body)
+        if cfg0["n"] != n:
+            raise AssertionError(f"/config: n {cfg0['n']}")
+        step0 = app.step_index
+        app._accum = 5.0 / app.update_rate  # five steps are due: a real tick
+        body, ctype, times["/positions.bin"] = _request(url + "/positions.bin")
+        if ctype != "application/octet-stream" or len(body) != 8 + 13 * n:
+            raise AssertionError(f"/positions.bin: {len(body)} bytes, want "
+                                 f"{8 + 13 * n}")
+        head_n = int(np.frombuffer(body[:4], np.int32)[0])
+        pos = np.frombuffer(body[8:8 + 12 * n], np.float32).reshape(n, 3)
+        spec = np.frombuffer(body[8 + 12 * n:], np.uint8)
+        if (head_n != n or not np.array_equal(pos, app.state.positions.cpu().numpy())
+                or not np.array_equal(spec, app.state.species.cpu().numpy())):
+            raise AssertionError("/positions.bin does not decode to the app's "
+                                 "state")
+        body, ctype, times["/frame.png"] = _request(url + "/frame.png?w=320&h=240")
+        img = _png_pixels(body)
+        want = app.render(320, 240)  # no tick in between
+        if ctype != "image/png" or img.shape != (240, 320, 3) or \
+                not np.array_equal(img, want):
+            raise AssertionError("/frame.png does not decode to app.render()")
+        for name, args in (("set_drag", {"value": 0.5}),
+                           ("keys", {"keys": ["w", "left"], "dt": 0.1})):
+            body, _, times[f"POST {name}"] = _request(
+                url + "/control", json.dumps({"name": name, "args": args}).encode())
+            if json.loads(body) != {"ok": True}:
+                raise AssertionError(f"/control {name}: {body!r}")
+        cfg1 = json.loads(_request(url + "/config")[0])
+        if cfg1["coefficient"] != 0.5:
+            raise AssertionError(f"/config after set_drag: {cfg1['coefficient']}")
+        body, _, times["/metrics"] = _request(url + "/metrics")
+        m = json.loads(body)
+        if not m["step_index"] > step0 or m["capacity_masked"] != 0:
+            raise AssertionError(f"/metrics: step {m['step_index']} (was "
+                                 f"{step0}), masked {m['capacity_masked']}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join()
+    log(f"  six request kinds answered; step {step0} -> {m['step_index']}, "
+        f"drag 0.5, positions and frame decode to the app's")
+    for k, ms in times.items():
+        log(f"  {k}: {ms:.3f} ms (wall, host clock)")
+    return times
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -1546,6 +1914,9 @@ def main():
     k5 = phase_mxu()
     k5["launches"], _ = phase_mxu_path()
     phase_lj_gas()
+    _, app = phase_app()
+    phase_server(app)
+    del app
     log(smi)  # the card and its power limit, beside the numbers below
     src = "particle3d_tpu_torch/csrc/allpairs_sweep.cu"
     table = [("celllist_sweep", "particle3d_tpu_torch/csrc/celllist_sweep.cu",

@@ -2,6 +2,12 @@
 
     python -m particle3d_tpu_torch run --preset particle_life_large --steps 48
     python -m particle3d_tpu_torch run --preset reference --steps 5 --device cpu
+    python -m particle3d_tpu_torch run --preset reference --gif out.gif
+    python -m particle3d_tpu_torch run --preset reference --record t.p3t
+    python -m particle3d_tpu_torch replay --traj t.p3t --gif out.gif
+    python -m particle3d_tpu_torch run --preset reference --checkpoint ck.npz
+    python -m particle3d_tpu_torch resume --checkpoint ck.npz --steps 100
+    python -m particle3d_tpu_torch serve --preset particle_life_large --port 8971
     python -m particle3d_tpu_torch presets
     python -m particle3d_tpu_torch slab --config slab_8m --steps 10
     torchrun --nproc_per_node=4 -m particle3d_tpu_torch slab --config slab_8m
@@ -10,7 +16,11 @@
 force-kernel launches (``kernel_launches``, with one count per kernel in
 ``kernel_launches_by_kernel``) and, for the cell-list presets, the capacity
 ladder's history. ``--device cuda`` (the default) never falls back to the
-CPU.
+CPU. ``--gif``, ``--record`` and ``--checkpoint`` write a GIF, a ``.p3t``
+trajectory or an npz checkpoint; their progress lines go to stderr.
+``resume`` continues a checkpoint (either package's), ``replay`` renders a
+trajectory to a GIF, and ``serve`` runs the browser UI
+(``app.server``). Every command that steps or renders takes ``--device``.
 
 ``slab`` runs a ``models.presets.SLAB_RUNS`` configuration on the slab
 decomposition, stay-sharded: one rank by default, or every rank of a
@@ -23,6 +33,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -47,24 +58,74 @@ def _sync(device: torch.device):
         torch.cuda.synchronize(device)
 
 
+def _device(name: str) -> torch.device:
+    from .state import resolve_device
+
+    return resolve_device(name)
+
+
+def _say(msg: str):
+    """Progress lines go to stderr: stdout carries the JSON record."""
+    print(msg, file=sys.stderr, flush=True)
+
+
 def _cmd_run(a):
-    from .engine.step import warmup
+    from .app.headless import render_trajectory, save_gif
+    from .engine.step import trajectory, warmup
     from .models import make_scene
     from .ops import kernel_launches
+    from .utils.checkpoint import (_config_to_jsonable, load_checkpoint,
+                                   save_checkpoint)
     from .utils.metrics import measure_metrics
+    from .utils.trajio import TrajectoryWriter
 
-    device = torch.device(a.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(use --device cpu to run the plain torch path)")
+    device = _device(a.device)
     state, cfg, dt = make_scene(a.preset, seed=a.seed, n=a.n, device=device)
     if a.dt:
         dt = a.dt
+    start_step = 0
+    if a.checkpoint and a.checkpoint_every and os.path.exists(a.checkpoint):
+        # restart: resume from the newest periodic snapshot
+        state, cfg, start_step, _ = load_checkpoint(a.checkpoint, device=device)
+        _say(f"resuming from {a.checkpoint} at step {start_step}")
     launches0 = kernel_launches()
     _sync(device)
     t0 = time.perf_counter()
-    state = warmup(state, cfg)
-    state, history = _simulate_best(state, cfg, dt, a.steps)
+    history = None
+    if a.record:
+        state = warmup(state, cfg)
+        meta = {"config": _config_to_jsonable(cfg), "dt": float(dt),
+                "snapshot_every": a.snapshot_every}
+        chunk = a.snapshot_every * 64  # bounds the snapshots held at once
+        with TrajectoryWriter(a.record, state.n, state.species, meta) as tw:
+            done = 0
+            while done < a.steps:
+                k = min(chunk, a.steps - done)
+                state, snaps = trajectory(state, cfg, dt, k,
+                                          snapshot_every=a.snapshot_every)
+                tw.append_batch(snaps)
+                done += k
+        _say(f"recorded {tw.frames} frames to {a.record}")
+    elif a.gif:
+        state, frames = render_trajectory(
+            state, cfg, dt, a.steps, snapshot_every=a.snapshot_every,
+            width=a.width, height=a.height)
+        save_gif(frames, a.gif, fps=a.fps)
+        _say(f"wrote {a.gif} ({frames.shape[0]} frames)")
+    elif a.checkpoint and a.checkpoint_every:
+        # periodic snapshots: after a crash, the same command resumes
+        state = warmup(state, cfg)
+        done = start_step
+        history = []
+        while done < a.steps:
+            k = min(a.checkpoint_every, a.steps - done)
+            state, hist = _simulate_best(state, cfg, dt, k)
+            history += hist or []
+            done += k
+            save_checkpoint(a.checkpoint, state, cfg, done)
+    else:
+        state = warmup(state, cfg)
+        state, history = _simulate_best(state, cfg, dt, a.steps)
     _sync(device)
     el = time.perf_counter() - t0
     launches = {k: c - launches0[k] for k, c in kernel_launches().items()}
@@ -76,7 +137,60 @@ def _cmd_run(a):
            "kernel_launches_by_kernel": launches,
            "history": history}
     print(json.dumps(rec))
+    if a.checkpoint:
+        save_checkpoint(a.checkpoint, state, cfg, a.steps)
+        _say(f"wrote {a.checkpoint}")
     return rec
+
+
+def _cmd_resume(a):
+    from .engine.step import warmup
+    from .utils.checkpoint import load_checkpoint, save_checkpoint
+    from .utils.metrics import measure_metrics
+
+    device = _device(a.device)
+    state, cfg, step0, _ = load_checkpoint(a.checkpoint, device=device)
+    state = warmup(state, cfg)
+    state, _ = _simulate_best(state, cfg, a.dt, a.steps)
+    _sync(device)
+    rec = {"resumed_from": step0, "now": step0 + a.steps,
+           **measure_metrics(state).as_dict()}
+    print(json.dumps(rec))
+    out = a.out or a.checkpoint
+    save_checkpoint(out, state, cfg, step0 + a.steps)
+    _say(f"wrote {out}")
+    return rec
+
+
+def _cmd_replay(a):
+    import numpy as np
+
+    from .app.headless import save_gif
+    from .render.camera import default_camera
+    from .render.splat import render_frame
+    from .utils.checkpoint import _config_from_jsonable
+    from .utils.trajio import TrajectoryReader
+
+    device = _device(a.device)
+    tr = TrajectoryReader(a.traj)
+    cfg = _config_from_jsonable(tr.meta["config"])
+    cam = default_camera(float(np.asarray(cfg.world_size)))
+    species = torch.as_tensor(np.array(tr.species), device=device)
+    frames = [render_frame(torch.as_tensor(np.array(tr[i]), device=device),
+                           species, cfg, cam, a.width, a.height).cpu().numpy()
+              for i in range(0, len(tr), a.every)]
+    save_gif(np.stack(frames), a.gif, fps=a.fps)
+    print(f"replayed {len(frames)} of {len(tr)} frames -> {a.gif}")
+
+
+def _cmd_serve(a):
+    from .app.server import main as serve_main
+
+    argv = ["--preset", a.preset, "--port", str(a.port), "--host", a.host,
+            "--seed", str(a.seed), "--device", a.device]
+    if a.n:
+        argv += ["--n", str(a.n)]
+    serve_main(argv)
 
 
 def _cmd_slab(a):
@@ -130,7 +244,46 @@ def main(argv=None):
     r.add_argument("--dt", type=float, default=None)
     r.add_argument("--seed", type=int, default=0)
     r.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    r.add_argument("--gif", default=None)
+    r.add_argument("--snapshot-every", type=int, default=4)
+    r.add_argument("--fps", type=int, default=20)
+    r.add_argument("--width", type=int, default=480)
+    r.add_argument("--height", type=int, default=360)
+    r.add_argument("--checkpoint", default=None)
+    r.add_argument("--checkpoint-every", type=int, default=None,
+                   help="write the checkpoint every N steps and resume from "
+                        "it if it exists (snapshot-based restart)")
+    r.add_argument("--record", default=None,
+                   help="stream position frames (every --snapshot-every "
+                        "steps) to this .p3t trajectory file")
     r.set_defaults(fn=_cmd_run)
+
+    rp = sub.add_parser("replay", help="render a recorded trajectory to GIF")
+    rp.add_argument("--traj", required=True)
+    rp.add_argument("--gif", required=True)
+    rp.add_argument("--every", type=int, default=1)
+    rp.add_argument("--fps", type=int, default=20)
+    rp.add_argument("--width", type=int, default=480)
+    rp.add_argument("--height", type=int, default=360)
+    rp.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    rp.set_defaults(fn=_cmd_replay)
+
+    s = sub.add_parser("serve", help="interactive browser UI")
+    s.add_argument("--preset", default="reference")
+    s.add_argument("--n", type=int, default=None)
+    s.add_argument("--seed", type=int, default=0)
+    s.add_argument("--port", type=int, default=8000)
+    s.add_argument("--host", default="127.0.0.1")
+    s.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    s.set_defaults(fn=_cmd_serve)
+
+    c = sub.add_parser("resume", help="resume from a checkpoint")
+    c.add_argument("--checkpoint", required=True)
+    c.add_argument("--steps", type=int, default=100)
+    c.add_argument("--dt", type=float, default=1.0 / 60.0)
+    c.add_argument("--out", default=None)
+    c.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    c.set_defaults(fn=_cmd_resume)
 
     sl = sub.add_parser("slab", help="stay-sharded slab run of a SLAB_RUNS "
                                      "configuration (torchrun for several ranks)")

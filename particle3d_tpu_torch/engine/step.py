@@ -254,6 +254,91 @@ def _dense_scan(ds0, cfg: SimConfig, dt, num_steps: int, nsc: int, cap: int,
     return ds, (mx_mov, mx_mis)
 
 
+def simulate_dense_carry(ds, cfg: SimConfig, dt, num_steps: int, nsc: int,
+                         cap: int, mcap: int, ocap: int | None = None):
+    """``simulate_dense`` continued on a dense layout that already exists
+    (``ops.celllist_dense.build_dense``): the interactive driver keeps the
+    layout across tick batches, so only its first batch pays the sorting
+    build. Returns ``(layout, (max_movers, max_masked))``; masked counts
+    frozen rows only (the sidecar keeps up to ``ocap`` misplaced rows
+    exact, as in ``simulate_dense``)."""
+    return _dense_scan(ds, cfg, dt, num_steps, nsc, cap, mcap, ocap=ocap)
+
+
+def _cadenced_window(s: ParticleState, cfg: SimConfig, dt, k: int, nsc: int,
+                     cap: int):
+    """k steps on one frozen layout built from ``s``. Returns ``(state,
+    drift, dropped)`` with device scalars: the largest displacement from
+    the layout's anchor, and the particles the build left without a slot
+    (they keep their state from ``s``)."""
+    from ..ops.celllist_sweep import (build_layout, dense_forces, layout_drift,
+                                      slot_of_particle)
+
+    u, v = F.pair_features(s, cfg)
+    layout = build_layout(s.positions, u, v, cfg, nsc, cap)
+    # the state moves into the slots and integrates there: between rebuilds
+    # nothing is gathered or scattered. Empty slots ride as inert rows at
+    # the origin: never sources (gate -1), and K1 selects their own force
+    # to exactly 0, so no force is multiplied by a mask (under
+    # Lennard-Jones a row on top of another would give inf * 0 = NaN)
+    slot = layout.slot_particle.reshape(-1)
+    present = slot >= 0
+    safe = torch.where(present, slot, 0)
+
+    def to_slots(a):
+        return torch.where(present.reshape((-1,) + (1,) * (a.dim() - 1)),
+                           a[safe], torch.zeros((), dtype=a.dtype,
+                                                device=a.device))
+
+    dense = ParticleState(*(to_slots(getattr(s, f))
+                            for f in ParticleState.__dataclass_fields__))
+    kick = float(F.kick_scale(cfg))
+
+    def accel_fn(positions, st, c):
+        return dense_forces(layout, positions, c, nsc, cap) * kick
+
+    for _ in range(k):
+        dense = step(dense, cfg, dt, accel_fn=accel_fn)
+    inv = slot_of_particle(layout, s.n)
+    ok = (inv >= 0)[:, None]
+    inv_safe = torch.clamp(inv, min=0)
+    s = s.replace(**{f: torch.where(ok, getattr(dense, f)[inv_safe],
+                                    getattr(s, f))
+                     for f in ("positions", "velocities", "accel")})
+    return s, layout_drift(layout, s.positions, cfg), s.n - present.sum()
+
+
+def simulate_cadenced(state: ParticleState, cfg: SimConfig, dt,
+                      num_steps: int, rebuild_every: int = 8,
+                      nsc: int | None = None, cap: int | None = None):
+    """Trajectory on the column-sweep cell list with cadenced layout
+    rebuilds: the binning is redone every ``rebuild_every`` steps, and in
+    between the state integrates in the frozen slot layout, K1 reading the
+    layout's cached features and gates (the MD skin / Verlet-list
+    pattern). One K1 launch a step; no host synchronisation.
+
+    Exact while every particle drifts less than
+    ``ops.celllist_sweep.drift_budget(cfg, nsc)`` between rebuilds and no
+    build overflows its capacity. Returns ``(state, max_drift,
+    max_dropped)`` as device scalars, so callers can check the drift and
+    rewind a window whose build dropped particles (those ride the window
+    frozen)."""
+    nsc = cfg.cell_grid if nsc is None else nsc
+    cap = cfg.cell_capacity if cap is None else cap
+    if nsc is None or cap is None:
+        raise ValueError("simulate_cadenced needs cfg.cell_grid / "
+                         "cfg.cell_capacity")
+    dev = state.positions.device
+    max_drift = torch.zeros((), dtype=torch.float32, device=dev)
+    max_dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    done = 0
+    while done < num_steps:
+        k = min(rebuild_every, num_steps - done)
+        state, drift, dropped = _cadenced_window(state, cfg, dt, k, nsc, cap)
+        max_drift = torch.maximum(max_drift, drift)
+        max_dropped = torch.maximum(max_dropped, dropped)
+        done += k
+    return state, max_drift, max_dropped
 
 
 def _sync(t: torch.Tensor):

@@ -26,14 +26,17 @@ only, so it never evaluates such a row. The CUDA path has no fallback: it
 launches or raises. ``KERNEL_LAUNCHES`` counts the launches
 without the halo, ``HALO_LAUNCHES`` those in halo mode.
 
-Not ported here: the cadenced ``CellLayout`` half, and the Mosaic
-VMEM/alignment model (``_pick_zr``, ``kernel_vmem_bytes``,
-``max_feasible_cap``).
+The cadenced half (``CellLayout`` and ``build_layout`` to
+``layout_forces``) freezes a binning across steps: between rebuilds only
+the positions are regathered and ghosted, and K1 reads the layout's cached
+features and gates. Not ported: the Mosaic VMEM/alignment model
+(``_pick_zr``, ``kernel_vmem_bytes``, ``max_feasible_cap``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
 import numpy as np
 import torch
@@ -264,33 +267,43 @@ def fold_to_cells(pos_r, w, nsc: int, cap: int, col0_x: int = 0):
     return pos_r - float(w) * torch.round(F.tdiv(pos_r - ctr, w))
 
 
+def _ghost(a, cfg: SimConfig, cap: int, fill: float, zshift: bool = False):
+    """Slot-major [NCOL, CS, ...] -> ghosted [NSRC, G, ...]. Periodic: one
+    copy of the far-end supercell at each z end (coordinates shifted by
+    -+w when ``zshift``). Walled: ``fill`` padding, plus the dummy column
+    of ``fill`` appended last."""
+    ncol, cs = a.shape[0], a.shape[1]
+    if cfg.wrap_forces:
+        lo, hi = a[:, cs - cap:], a[:, :cap]
+        if zshift:
+            # [0, 0, w] made on the device: a host value assigned into it
+            # would be a blocking copy
+            zs = torch.nn.functional.pad(
+                torch.full((1,), float(f32(cfg.world_size)), device=a.device),
+                (2, 0))
+            lo, hi = lo - zs, hi + zs
+        return torch.cat([lo, a, hi], 1)
+    g = torch.full((ncol + 1, cs + 2 * cap) + tuple(a.shape[2:]), fill,
+                   dtype=torch.float32, device=a.device)
+    g[:ncol, cap:cap + cs] = a
+    return g
+
+
+def ghost_positions(pos_r, cfg: SimConfig, cap: int):
+    """Slot-major positions [NCOL, CS, 3] -> ghosted slot-minor post_g
+    [NSRC, 3, G]: the one operand that changes between steps on a frozen
+    layout (``dense_forces``)."""
+    return _ghost(pos_r, cfg, cap, 0.0, zshift=True).permute(0, 2, 1).contiguous()
+
+
 def ghost_columns(pos_r, v_r, r2_r, cfg: SimConfig, cap: int):
     """Slot-major column arrays pos_r [NCOL, CS, 3], v_r [NCOL, CS, P],
     r2_r [NCOL, CS] -> ghosted slot-minor (post_g, vt_g, r2_g). Periodic:
     the z ghosts are +-w-shifted copies of the far end. Walled: masked
     padding, plus the fully masked dummy column appended last."""
-    ncol, cs = pos_r.shape[0], pos_r.shape[1]
-    dev = pos_r.device
-    if cfg.wrap_forces:
-        # [0, 0, w] made on the device: a host value assigned into it would
-        # be a blocking copy
-        zs = torch.nn.functional.pad(
-            torch.full((1,), float(f32(cfg.world_size)), device=dev), (2, 0))
-        pos_g = torch.cat([pos_r[:, cs - cap:] - zs, pos_r, pos_r[:, :cap] + zs], 1)
-        v_g = torch.cat([v_r[:, cs - cap:], v_r, v_r[:, :cap]], 1)
-        r2_gh = torch.cat([r2_r[:, cs - cap:], r2_r, r2_r[:, :cap]], 1)
-    else:
-        g = cs + 2 * cap
-        pos_g = torch.zeros((ncol + 1, g, 3), dtype=torch.float32, device=dev)
-        v_g = torch.zeros((ncol + 1, g, v_r.shape[2]), dtype=torch.float32,
-                          device=dev)
-        r2_gh = torch.full((ncol + 1, g), -1.0, dtype=torch.float32, device=dev)
-        pos_g[:ncol, cap:cap + cs] = pos_r
-        v_g[:ncol, cap:cap + cs] = v_r
-        r2_gh[:ncol, cap:cap + cs] = r2_r
-    return (pos_g.permute(0, 2, 1).contiguous(),
-            v_g.permute(0, 2, 1).contiguous(),
-            r2_gh[:, None, :].contiguous())
+    return (ghost_positions(pos_r, cfg, cap),
+            _ghost(v_r, cfg, cap, 0.0).permute(0, 2, 1).contiguous(),
+            _ghost(r2_r, cfg, cap, -1.0)[:, None, :].contiguous())
 
 
 def bin_sid(positions, cfg: SimConfig, nsc: int):
@@ -394,3 +407,97 @@ def fresh_celllist_forces(positions, u, v, cfg: SimConfig,
         out = index_add_rows(out, mp, f_mis.to(out.dtype), mis_p < n)
         slotf = slotf + f_from.to(slotf.dtype)
     return index_add_rows(out, torch.clamp(slot, min=0), slotf, slot >= 0)
+
+
+# ---------------------------------------------------------------------------
+# Cadenced rebuild: reuse the sorted layout across steps
+# ---------------------------------------------------------------------------
+#
+# Binning only needs to be valid, not fresh: a pair within the cutoff is
+# still covered by the +-1 supercell window while every particle has drifted
+# less than (cell_width - cutoff)/2 since the layout was built. The sort and
+# scatter of a build are the expensive part; refreshing positions into an
+# existing layout is one gather. Features and the r2 gate are
+# layout-constant and cached.
+
+
+@dataclasses.dataclass(frozen=True)
+class CellLayout:
+    """Frozen binning of particles into the column layout."""
+
+    slot_particle: torch.Tensor  # i64 [NCOL, CS], -1 for an empty slot
+    u_d: torch.Tensor            # f32 [NCOL, P, CS] receiver features
+    vt_g: torch.Tensor           # f32 [NSRC, P, G] ghosted source features
+    r2_g: torch.Tensor           # f32 [NSRC, 1, G] ghosted gates
+    anchor: torch.Tensor         # f32 [N, 3] positions at build time
+
+
+def build_layout(positions, u, v, cfg: SimConfig, nsc: int, cap: int) -> CellLayout:
+    """Bin and sort ``positions`` into a layout; particles of cell rank >=
+    cap get no slot (``slot_of_particle`` gives them -1)."""
+    u, v = F.pad_features(u, v)
+    _, u_d, _, vt_g, r2_g, slot_particle = prepare_columns(
+        positions, u, v, cfg, nsc, cap)
+    return CellLayout(slot_particle, u_d, vt_g, r2_g, positions)
+
+
+def slot_of_particle(layout: CellLayout, n: int):
+    """i64 [N] flat slot of each particle, -1 for particles the build
+    dropped."""
+    slot = layout.slot_particle.reshape(-1)
+    inv = torch.full((n + 1,), -1, dtype=torch.int64, device=slot.device)
+    inv[torch.where(slot >= 0, slot, n)] = torch.arange(slot.shape[0],
+                                                        device=slot.device)
+    return inv[:n]
+
+
+def dense_forces(layout: CellLayout, pos_flat, cfg: SimConfig, nsc: int,
+                 cap: int):
+    """K1 forces f32 [NCOL*CS, 3] for positions already in the layout's
+    slots (f32 [NCOL*CS, 3]); exactly 0 on empty slots. Only the positions
+    are folded and ghosted on each call; features and gates come from the
+    layout."""
+    ncol, cs = nsc * nsc, nsc * cap
+    pos_r = pos_flat.reshape(ncol, cs, 3).float()
+    if cfg.wrap_forces:
+        # stale-layout wrap crossers go back next to their cell
+        pos_r = fold_to_cells(pos_r, cfg.world_size, nsc, cap)
+    forces_d = column_sweep_forces(
+        pos_r.permute(0, 2, 1).contiguous(), layout.u_d,
+        ghost_positions(pos_r, cfg, cap), layout.vt_g, layout.r2_g,
+        pack_params(cfg), cfg.force_law, bool(cfg.wrap_forces), nsc, cap)
+    return forces_d.permute(0, 2, 1).reshape(-1, 3)
+
+
+def drift_budget(cfg: SimConfig, nsc: int) -> float:
+    """Largest per-particle displacement a frozen layout tolerates:
+    (cell_width - cutoff) / 2, in float32."""
+    w = f32(cfg.world_size)
+    r = f32(cfg.particle_effect_radius)
+    cutoff = min(r, np.float32(1.0)) if cfg.force_law == "particle_life" else r
+    return float((w / np.float32(nsc) - cutoff) * np.float32(0.5))
+
+
+def layout_drift(layout: CellLayout, positions, cfg: SimConfig):
+    """Largest displacement since the layout's anchor, minimum image (a
+    device scalar)."""
+    d = F.min_image(positions - layout.anchor, cfg.world_size)
+    return torch.sqrt(torch.max(torch.sum(d * d, dim=-1)))
+
+
+def layout_forces(layout: CellLayout, positions, cfg: SimConfig, nsc: int,
+                  cap: int):
+    """Forces [N, 3] on a frozen layout for particle-order positions: one
+    gather into the slots, K1, one scatter back (0 for dropped particles).
+    ``dense_forces`` skips both when the state lives in the slots
+    (``engine.step.simulate_cadenced``)."""
+    from .compaction import index_add_rows
+
+    n = positions.shape[0]
+    slot = layout.slot_particle.reshape(-1)
+    present = slot >= 0
+    safe = torch.where(present, slot, 0)
+    pos_flat = torch.where(present[:, None], positions[safe], 0.0)
+    f = dense_forces(layout, pos_flat, cfg, nsc, cap)
+    return index_add_rows(torch.zeros_like(positions), safe,
+                          f.to(positions.dtype), present)

@@ -88,6 +88,20 @@ def from_numpy(positions, velocities, species, masses=None, accel=None,
         t(np.zeros((n, 3)) if accel is None else accel, torch.float32))
 
 
+def resize(state: ParticleState, generator: torch.Generator, new_n: int,
+           cfg: SimConfig) -> ParticleState:
+    """Shrink by truncation, or grow by new particles drawn as
+    ``init_scene`` draws them from the CPU ``generator`` (the reference
+    app's live particle-count control)."""
+    if new_n <= state.n:
+        return ParticleState(*(getattr(state, f.name)[:new_n]
+                               for f in dataclasses.fields(state)))
+    extra = init_scene(generator, new_n - state.n, cfg, state.positions.device)
+    return ParticleState(*(torch.cat([getattr(state, f.name),
+                                      getattr(extra, f.name)])
+                           for f in dataclasses.fields(state)))
+
+
 def from_jax_state(st, device="cuda") -> ParticleState:
     """Convert a JAX ``particle3d_tpu.state.ParticleState`` (read through
     numpy, so the port never imports jax)."""

@@ -6,6 +6,8 @@ package's ``utils.profiling``).
         --cap 64 --out build/profile
     python -m particle3d_tpu_torch.utils.profiling --path culled \\
         --preset particle_life_large --out build/profile
+    python -m particle3d_tpu_torch.utils.profiling --path cadenced \\
+        --preset particle_life_large --cap 64 --out build/profile
     python -m particle3d_tpu_torch.utils.profiling --path slab \\
         --preset slab_8m --steps 4 --out build/profile
     python -m particle3d_tpu_torch.utils.profiling --path simulate \\
@@ -14,7 +16,9 @@ package's ``utils.profiling``).
 
 For each preset: the all-in ms/step of a 16-step and a 32-step window of
 the chosen path (best of two, after a warm-up): ``dense``
-(``simulate_dense``, the default), ``culled`` (``simulate_culled``, one
+(``simulate_dense``, the default), ``cadenced`` (``simulate_cadenced``,
+the layout rebuilt every ``--rebuild-every`` steps, 4 by default: the
+app's batch), ``culled`` (``simulate_culled``, one
 Morton sort per window), ``simulate`` (the preset's own backend,
 e.g. ``allpairs_pallas``, or ``--neighbor``'s: the K5 path has no preset
 of its own) or ``slab`` (``sharded_dense_steps`` on a
@@ -26,6 +30,9 @@ the unprofiled window of the same length (the profiler slows the host),
 kernel launches per step and the largest kernels.
 Writes ``profile.json`` plus each preset's kernel table and Chrome trace to
 ``--out``; prints one JSON line per preset.
+
+``StepTimer`` is the app's rolling wall-clock timer; its callers
+synchronise the card before the block it times ends.
 """
 
 from __future__ import annotations
@@ -42,6 +49,32 @@ from torch.profiler import ProfilerActivity, profile
 WINDOW = 16
 
 
+class StepTimer:
+    """Rolling wall-clock timer (EMA) of a ``with`` block. The block must
+    end with the card synchronised, or the timer reads the enqueue."""
+
+    def __init__(self, alpha: float = 0.1):
+        self.alpha = alpha
+        self.ema_s: float | None = None
+        self.last_s: float = 0.0
+        self._t0: float | None = None
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.last_s = time.perf_counter() - self._t0
+        self.ema_s = (self.last_s if self.ema_s is None
+                      else self.alpha * self.last_s
+                      + (1 - self.alpha) * self.ema_s)
+        return False
+
+    @property
+    def ema_ms(self) -> float:
+        return 1000.0 * (self.ema_s or 0.0)
+
+
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -55,14 +88,17 @@ def _wall_s(fn, device):
     return time.perf_counter() - t0
 
 
-PATHS = ("dense", "culled", "simulate", "slab")
+PATHS = ("dense", "cadenced", "culled", "simulate", "slab")
 
 
-def _path_fn(path: str):
+def _path_fn(path: str, rebuild_every: int = 4):
     from ..engine import step as engine
 
     if path == "dense":
         return engine.simulate_dense
+    if path == "cadenced":
+        return lambda st, cfg, dt, k: engine.simulate_cadenced(
+            st, cfg, dt, k, rebuild_every=rebuild_every)
     if path == "culled":
         return lambda st, cfg, dt, k: engine.simulate_culled(st, cfg, dt, k,
                                                              window=k)
@@ -85,10 +121,11 @@ def _slab_scene(name: str, device):
 
 
 def profile_window(state, cfg, dt, steps: int = WINDOW, top: int = 25,
-                   trace_path: str | None = None, path: str = "dense"):
+                   trace_path: str | None = None, path: str = "dense",
+                   rebuild_every: int = 4):
     """Time and profile windows of ``path`` from ``state``. Device fields
     are None when the state is not on a CUDA device."""
-    fn = _path_fn(path)
+    fn = _path_fn(path, rebuild_every)
     return _measure(lambda k: fn(state, cfg, dt, k), state.n,
                     state.positions.device, cfg, path, steps, top, trace_path)
 
@@ -145,6 +182,8 @@ def main(argv=None):
                    help="override the preset's cell capacity")
     p.add_argument("--steps", type=int, default=WINDOW)
     p.add_argument("--path", choices=PATHS, default="dense")
+    p.add_argument("--rebuild-every", type=int, default=4,
+                   help="layout rebuilds of the cadenced path, in steps")
     p.add_argument("--neighbor", default=None,
                    help="override the preset's force backend")
     p.add_argument("--seed", type=int, default=0)
@@ -181,7 +220,8 @@ def main(argv=None):
             if a.neighbor is not None:
                 cfg = cfg.replace(neighbor=a.neighbor)
             rec, ka = profile_window(state, cfg, dt, a.steps, trace_path=trace,
-                                     path=a.path)
+                                     path=a.path,
+                                     rebuild_every=a.rebuild_every)
         table = ka.table(sort_by="self_cuda_time_total" if device.type == "cuda"
                          else "self_cpu_time_total", row_limit=40)
         with open(os.path.join(a.out, f"profile_{tag}.txt"), "w") as f:

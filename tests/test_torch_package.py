@@ -50,9 +50,16 @@ def test_every_module_imports_with_jax_blocked():
     out = subprocess.run([sys.executable, "-c", _NO_JAX], cwd=REPO, check=True,
                          capture_output=True, text=True, timeout=120)
     names = out.stdout.split()
-    assert len(names) >= 18
+    assert len(names) >= 28
     assert {"particle3d_tpu_torch.ops.allpairs_mxu_sweep",
-            "particle3d_tpu_torch.ops.celllist"} <= set(names)
+            "particle3d_tpu_torch.ops.celllist",
+            "particle3d_tpu_torch.app.driver",
+            "particle3d_tpu_torch.app.server",
+            "particle3d_tpu_torch.app.headless",
+            "particle3d_tpu_torch.render.camera",
+            "particle3d_tpu_torch.render.splat",
+            "particle3d_tpu_torch.utils.checkpoint",
+            "particle3d_tpu_torch.utils.trajio"} <= set(names)
 
 
 def test_from_jax_config_round_trip():
@@ -158,15 +165,28 @@ def test_pair_coef_keeps_full_float32():
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
-def test_entry_points_default_to_the_card(monkeypatch):
-    """make_scene, from_numpy and from_jax_state default to device="cuda"
-    and raise without a card instead of running on the host."""
+def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
+    """make_scene, from_numpy, from_jax_state, SimulationApp (and its
+    load) and the serve, resume and replay commands default to the card
+    and raise without one instead of running on the host."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     jst = jax_init_scene(jax.random.PRNGKey(0), 8, reference_config())
     z = np.zeros((8, 3), np.float32)
+    cpu_state = P.from_numpy(z, z, np.zeros(8, np.int32), device="cpu")
+    ck = str(tmp_path / "ck.npz")
+    P.SimulationApp(cpu_state, P.reference_config(), device="cpu").save(ck)
     for call in (lambda: P.make_scene("reference", n=8),
                  lambda: P.from_numpy(z, z, np.zeros(8, np.int32)),
-                 lambda: P.from_jax_state(jst)):
+                 lambda: P.from_jax_state(jst),
+                 lambda: P.SimulationApp(n=8),
+                 lambda: P.SimulationApp(cpu_state, P.reference_config()),
+                 lambda: P.SimulationApp.load(ck),
+                 lambda: cli.main(["serve", "--n", "8", "--port", "0"]),
+                 lambda: cli.main(["resume", "--checkpoint", "none.npz"]),
+                 lambda: cli.main(["replay", "--traj", "none.p3t", "--gif",
+                                   "none.gif"]),
+                 lambda: cli.main(["run", "--n", "8", "--steps", "1",
+                                   "--gif", "none.gif"])):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             call()
     assert P.make_scene("reference", n=8, device="cpu")[0].n == 8
