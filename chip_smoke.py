@@ -128,7 +128,39 @@ exits non-zero:
      bytes, decoding to the app's positions and species), /frame.png at
      320x240 (its IDAT decoding to app.render), POST /control (set_drag,
      keys; /config shows the drag), /metrics (the step advanced); wall ms
-     per request.
+     per request;
+ 20. the adaptive slab driver on slab_2m (the `slab` command's seed-0
+     scene, N=2,097,152, grid 44, cap 64, no sidecar), one rank, 32 steps
+     in windows of 16: cap 64 masks first at step 14 (checked by two
+     prefix windows); the first window rewinds, recaps to 128 and commits
+     masked 0 (one rewind, one K1 halo launch a step run, the host syncs
+     counted); the recap's ms, ms/step at each capacity, peak device
+     memory; the committed carry, gathered, against sharded_dense_steps at
+     cap 128 from the same start (max |dpos| / world <= 1e-5);
+ 20b. its exact terminal rung on phase 11's blob (262k, max_cap 64, ocap
+     0, 16 steps in windows of 8): the ladder ends, the exact windows run
+     K3 once a step and never the plain sweep on a CUDA tensor, every
+     committed window has masked 0, positions within rtol 1e-4 / atol 1e-5
+     of simulate_dense_adaptive; the "exact_replicated" rung (K4) against
+     it too; ms/step on the rung (and on re-entry, if the blob disperses),
+     K3's ms per launch at 262,144 x 262,144 and its bound; K3 at that
+     shape held against its plain version on 4,096 receivers (the blob's
+     2,000 and a sample) against all sources, unmasked and on
+     ring.masked_rect_operands with a quarter of the sources at r2 = -1;
+ 21. the column-slab cell path, sharded_cell_simulate on
+     particle_life_large at cap 64, rebuilt every 4, 16 steps, one rank:
+     one K1 halo launch a step, against simulate_cadenced (max |dpos| /
+     world <= 1e-5, bit-identity reported), ms/step beside
+     simulate_cadenced's in the same run;
+ 22. the 2-level ring, sharded_simulate_2level on a 1 x 1 mesh on the
+     flagship scene (N=4,096, allpairs_pallas): two K3 launches, against
+     simulate;
+ 22b. with two or more cards: dryrun_multichip(2) (and (4) with four
+     cards) on NCCL (among its steps the 2-level ring on a 2 x D/2 mesh,
+     point-to-point on subgroups), and `torchrun -m particle3d_tpu_torch.parallel.dryrun
+     --slab-parity slab_2m` at D = 2 (and 4): the gathered state against
+     D = 1 (max |dpos| / world <= 1e-5, masked, limbo and lost 0); with
+     one card, a line saying it was not run.
 
 Tolerance for every force comparison: relative L2 error <= 1e-5 and max
 abs error <= 1e-4 * max|F|. Between a kernel and its plain version only
@@ -146,7 +178,8 @@ one pair at distance 0.012 puts the formulation's own max abs error at
 The second-to-last line is a JSON record of each kernel (K1 and its halo
 mode are separate entries): launches on the path that drives it (each
 path runs with every count set to 0 just before it; K1 halo's is the 8M
-timed window), error against the plain version, its time and the plain
+timed window), and, under "launches_by_path", on phases 20-22's paths;
+error against the plain version, its time and the plain
 version's at the stated shape, and the bound: the larger of the operations
 over their peak rates (the rank-1 coefficients, and K5 fast mode's Gram
 product, at 495 TFLOP/s TF32, the rest at 67 TFLOP/s FP32; counted per pair
@@ -1004,13 +1037,11 @@ def phase_allpairs_paths():
     return launches
 
 
-def phase_terminal_rung():
-    from particle3d_tpu_torch.engine.step import simulate_dense_adaptive
+def _blob_scene():
+    """particle_life_large at N=262,144 with N_BLOB particles packed into
+    one cell: denser than any capacity up to 64."""
     from particle3d_tpu_torch.models import make_scene
-    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
 
-    log(f"[11] terminal rung: simulate_dense_adaptive N={N_LARGE}, "
-        f"{N_BLOB} particles in one cell, ocap 0, max_cap 64")
     st, cfg, dt = make_scene("particle_life_large", seed=0, device=DEVICE)
     gen = torch.Generator().manual_seed(8)
     pos = st.positions.clone()
@@ -1019,7 +1050,16 @@ def phase_terminal_rung():
     centre = -w / 2 + (cfg.cell_grid // 2 + 0.5) * cell
     pos[:N_BLOB] = (centre + (torch.rand(N_BLOB, 3, generator=gen) - 0.5)
                     * 0.9 * cell).to(DEVICE)
-    st = st.replace(positions=pos)
+    return st.replace(positions=pos), cfg, dt
+
+
+def phase_terminal_rung():
+    from particle3d_tpu_torch.engine.step import simulate_dense_adaptive
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    log(f"[11] terminal rung: simulate_dense_adaptive N={N_LARGE}, "
+        f"{N_BLOB} particles in one cell, ocap 0, max_cap 64")
+    st, cfg, dt = _blob_scene()
     sync()
     reset_kernel_launches()
     out, cap, hist = simulate_dense_adaptive(st, cfg, dt, STEPS, chunk=8,
@@ -1090,7 +1130,7 @@ def _slab_operands(st, cfg, split=False):
                                     cap)
         r2c = r2c[nsc:-nsc]
     else:
-        fl, fr = DS.fix_halos(pack[-nsc:], pack[:nsc], cfg, g, 0)
+        fl, fr = DS.fix_halos(pack[-nsc:], pack[:nsc], cfg, g.d, 0)
         ops = DS.halo_call_operands(pos_d, u_d, torch.cat([fl, pack, fr]),
                                     cfg, cap)
     return ops, r2c, pack, pos_d, u_d, g
@@ -1887,6 +1927,382 @@ def phase_server(app):
         log(f"  {k}: {ms:.3f} ms (wall, host clock)")
     return times
 
+ADAPTIVE_STEPS = 32   # phase 20: two windows of 16 on slab_2m
+ADAPTIVE_WINDOW = 16
+MASK_STEP = 14        # the step of slab_2m's first masked row (seed 0)
+# K1 halo and K3 launches on this slice's paths, counted from 0 on each
+PATH_LAUNCHES = {"celllist_sweep_halo": {}, "allpairs_rect": {},
+                 "allpairs_pairlist": {}}
+
+
+def _zero_state(n):
+    """A particle-order template for gathers of carries that place every
+    row (its values are never read)."""
+    from particle3d_tpu_torch.state import ParticleState
+
+    z = torch.zeros((n, 3), device=DEVICE)
+    return ParticleState(z, z, torch.zeros(n, dtype=torch.int64, device=DEVICE),
+                         torch.ones(n, device=DEVICE), z)
+
+
+def _masked_at(carry, cfg, dt, steps, mesh, kw, n):
+    """Masked rows reported by a ``steps``-step window from ``carry``."""
+    from particle3d_tpu_torch.parallel import sharded_dense_steps
+
+    _, d = sharded_dense_steps(carry, cfg, dt, steps, mesh, n=n, **kw)
+    return int(d[1])
+
+
+def phase_slab_adaptive():
+    """The adaptive slab driver on slab_2m (the `slab` command's seed-0
+    scene): the first window masks at cap 64, rewinds, recaps to 128 and
+    commits exact; held against sharded_dense_steps at cap 128."""
+    from particle3d_tpu_torch.models.presets import slab_run
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.parallel import (
+        gather_sharded_dense, init_sharded_dense, make_mesh,
+        recap_sharded_dense, sharded_dense_adaptive, sharded_dense_steps)
+
+    n, cfg, dt, kw = slab_run("slab_2m")
+    nsc, cap0 = kw["nsc"], kw["cap"]
+    log(f"[20] adaptive slab driver: slab_2m (N={n}, grid {nsc}, cap {cap0}, "
+        f"ocap {kw['ocap']}, seed 0), {ADAPTIVE_STEPS} steps in windows of "
+        f"{ADAPTIVE_WINDOW}, one rank")
+    mesh = make_mesh(1, device=DEVICE)
+    carry0 = init_sharded_dense(0, n, cfg, mesh, nsc=nsc, cap=cap0,
+                                migcap=kw["migcap"])
+    before, at = (_masked_at(carry0, cfg, dt, k, mesh, kw, n)
+                  for k in (MASK_STEP - 1, MASK_STEP))
+    log(f"  cap {cap0}: masked {before} after {MASK_STEP - 1} steps, {at} "
+        f"after {MASK_STEP}")
+    if before or not at:
+        log(f"  the first masked row is not at step {MASK_STEP}, where "
+            f"utils/slab_census.py found it: the scene has changed; the run "
+            f"below reports where it rewinds")
+    msgs = []
+
+    def say(m):
+        msgs.append(m)
+        log(f"  {m}")
+
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    (carry, cap, hist), syncs, where = count_syncs(
+        lambda: sharded_dense_adaptive(
+            carry0, cfg, dt, ADAPTIVE_STEPS, mesh, n=n, nsc=nsc, cap=cap0,
+            mcap=kw["mcap"], migcap=kw["migcap"], ocap=kw["ocap"],
+            window=ADAPTIVE_WINDOW, verbose=say))
+    sync()
+    wall = time.perf_counter() - t0
+    halo = kernel_launches()["celllist_halo"]
+    peak = torch.cuda.max_memory_allocated()
+    PATH_LAUNCHES["celllist_sweep_halo"]["sharded_dense_adaptive slab_2m"] = halo
+    rewinds = [m for m in msgs if "rewinding the window" in m]
+    log(f"  history {hist}, final cap {cap}, {len(rewinds)} rewind(s); "
+        f"{wall:.2f} s wall for {ADAPTIVE_STEPS} committed steps; K1 halo "
+        f"launches {halo}; host syncs {syncs} {where}; peak device memory "
+        f"{peak / 1e9:.3f} GB")
+    ran = ADAPTIVE_STEPS + ADAPTIVE_WINDOW * len(rewinds)
+    if (len(rewinds) != 1 or cap != 2 * cap0 or any(t for _, _, t in hist)
+            or sum(k for k, _, _ in hist) != ADAPTIVE_STEPS or int(carry[4])):
+        raise AssertionError(f"slab_2m adaptive: expected one rewind to cap "
+                             f"{2 * cap0} and exact windows, got {hist}")
+    if halo != ran:
+        raise AssertionError(f"K1 halo launched {halo} times in {ran} steps")
+    rc_ms, grown = timed_ms(lambda: recap_sharded_dense(
+        carry0, cfg, mesh, nsc, cap0, cap), 3)
+    log(f"  recap {cap0} -> {cap}: {rc_ms:.3f} ms (CUDA events, mean of 3)")
+    ms = {}
+    for c, start in ((cap0, carry0), (cap, grown)):
+        ck = dict(kw, cap=c)
+        sync()
+        t0 = time.perf_counter()
+        out, d = sharded_dense_steps(start, cfg.replace(cell_capacity=c), dt,
+                                     ADAPTIVE_WINDOW, mesh, n=n, **ck)
+        sync()
+        ms[c] = (time.perf_counter() - t0) / ADAPTIVE_WINDOW * 1e3
+        log(f"  cap {c}: {ms[c]:.3f} ms/step (first {ADAPTIVE_WINDOW} steps "
+            f"from the start, host clock after a sync), masked {int(d[1])}")
+    ref, d = sharded_dense_steps(grown, cfg.replace(cell_capacity=cap), dt,
+                                 ADAPTIVE_STEPS, mesh, n=n, **dict(kw, cap=cap))
+    if int(d[1]) or int(d[2]) or int(d[3]):
+        raise AssertionError(f"reference at cap {cap} not exact: {d}")
+    base = _zero_state(n)
+    got = gather_sharded_dense(carry, base, mesh)
+    want = gather_sharded_dense(ref, base, mesh)
+    gap = _pos_gap(got, want, float(cfg.world_size))
+    same = torch.equal(got.positions, want.positions)
+    log(f"  committed carry against sharded_dense_steps at cap {cap} from "
+        f"the same start: max |dpos| / world {gap:.3e}, "
+        f"{'bit-identical' if same else 'not bit-identical'}")
+    if not gap <= 1e-5:
+        raise AssertionError("adaptive slab_2m off the cap-128 reference")
+    del carry0, carry, grown, ref, got, want
+    torch.cuda.empty_cache()
+    return {"ms_per_step": ms, "recap_ms": rc_ms, "peak": peak}
+
+
+def phase_slab_terminal():
+    """The adaptive slab driver's exact terminal rung on phase 11's blob:
+    K3 through the masked ring, never the plain sweep."""
+    from particle3d_tpu_torch.engine.step import simulate_dense_adaptive
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.ops import forces as F
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.parallel import (
+        build_sharded_dense, gather_sharded_dense, make_mesh,
+        sharded_dense_adaptive, sharded_dense_steps, sharded_exact_steps)
+    from particle3d_tpu_torch.parallel import ring as R
+
+    st, cfg, dt = _blob_scene()
+    log(f"[20b] exact terminal rung: sharded_dense_adaptive N={N_LARGE}, "
+        f"{N_BLOB} particles in one cell, one rank, max_cap 64, ocap 0, "
+        f"{STEPS} steps in windows of 8")
+    mesh = make_mesh(1, device=DEVICE)
+    carry0 = build_sharded_dense(st, cfg, mesh)
+    plain = R.allpairs_forces
+
+    def no_plain_on_card(positions, *a, **k):
+        if positions.is_cuda:
+            raise AssertionError("the exact rung ran the plain sweep")
+        return plain(positions, *a, **k)
+
+    R.allpairs_forces = no_plain_on_card
+    try:
+        sync()
+        reset_kernel_launches()
+        t0 = time.perf_counter()
+        carry, cap, hist = sharded_dense_adaptive(
+            carry0, cfg, dt, STEPS, mesh, n=N_LARGE, window=8, max_cap=64,
+            ocap=0, verbose=lambda m: log(f"  {m}"))
+        sync()
+        wall = time.perf_counter() - t0
+    finally:
+        R.allpairs_forces = plain
+    got_l = {k: c for k, c in kernel_launches().items() if c}
+    exact_steps = sum(k for k, c, _ in hist if c == "exact")
+    PATH_LAUNCHES["allpairs_rect"]["exact rung, 262k blob"] = \
+        got_l.get("allpairs_rect", 0)
+    log(f"  history {hist}, cap {cap}, launches {got_l}, {wall:.2f} s wall")
+    if (not exact_steps or any(t for _, _, t in hist)
+            or sum(k for k, _, _ in hist) != STEPS):
+        raise AssertionError(f"terminal rung not taken or not exact: {hist}")
+    if got_l.get("allpairs_rect", 0) != exact_steps:
+        raise AssertionError(f"K3 launched {got_l.get('allpairs_rect', 0)} "
+                             f"times in {exact_steps} exact steps (one rank)")
+    out = gather_sharded_dense(carry, st, mesh)
+    ref, rcap, rhist = simulate_dense_adaptive(st, cfg, dt, STEPS, chunk=8,
+                                               max_cap=64, ocap=0)
+    w = float(cfg.world_size)
+
+    def held(got):
+        """(max |dpos|, within rtol 1e-4 / atol 1e-5 of ref)."""
+        diff = F.min_image(got.positions - ref.positions, w).abs()
+        return (diff.max().item(),
+                bool((diff <= 1e-5 + 1e-4 * ref.positions.abs()).all()))
+
+    gap, ok = held(out)
+    log(f"  against simulate_dense_adaptive (history {rhist}): max |dpos| "
+        f"{gap:.3e}, rtol 1e-4 / atol 1e-5 {'held' if ok else 'missed'}")
+    if not ok:
+        raise AssertionError("terminal rung off simulate_dense_adaptive")
+    sync()
+    reset_kernel_launches()
+    rcarry, _, rep_hist = sharded_dense_adaptive(
+        carry0, cfg, dt, STEPS, mesh, n=N_LARGE, window=8, max_cap=64, ocap=0,
+        on_ladder_end="exact_replicated", state=st)
+    sync()
+    k4 = kernel_launches()["allpairs_pairlist"]
+    PATH_LAUNCHES["allpairs_pairlist"]["exact_replicated rung, 262k blob"] = k4
+    rout = gather_sharded_dense(rcarry, st, mesh)
+    rgap, rok = held(rout)
+    rep_steps = sum(k for k, c, _ in rep_hist if c == "exact")
+    log(f"  \"exact_replicated\" rung: history {rep_hist}, K4 launches {k4}; "
+        f"against simulate_dense_adaptive max |dpos| {rgap:.3e}"
+        + (" (bit-identical)" if torch.equal(rout.positions, ref.positions)
+           else ""))
+    if (not rep_steps or k4 != rep_steps or any(t for _, _, t in rep_hist)
+            or not rok):
+        raise AssertionError(f"replicated rung: {rep_hist}, K4 {k4}")
+    del rcarry, rout
+    ms, _ = timed_ms(lambda: sharded_exact_steps(carry0, cfg, dt, 4, mesh,
+                                                 rcap=N_LARGE), 1)
+    log(f"  the rung: {ms / 4:.3f} ms/step (sharded_exact_steps, rcap "
+        f"{N_LARGE}, 4 steps, CUDA events)")
+    rec = {"rung_ms_per_step": ms / 4}
+    if hist[-1][1] != "exact":
+        c = hist[-1][1]
+        ms2, _ = timed_ms(lambda: sharded_dense_steps(
+            carry, cfg.replace(cell_capacity=c), dt, 4, mesh, n=N_LARGE,
+            cap=c, ocap=0)[0], 1)
+        log(f"  re-entered the slab path at cap {c}: {ms2 / 4:.3f} ms/step "
+            f"(4 steps from the final carry, CUDA events)")
+        rec["reentry_ms_per_step"] = ms2 / 4
+    else:
+        log(f"  no re-entry within {STEPS} steps (the blob still overfills "
+            f"its cell at cap {cap})")
+    u, v = F.pair_features(out, cfg)
+    ops = A.rect_operands(out.positions, u, out.positions, v, cfg)
+    k_ms, got = timed_ms(lambda: A.rect_sweep(*ops), 3)
+    b = bound(N_LARGE * N_LARGE, ops_one_sided(u.shape[1], True),
+              nbytes(*ops[:5], got))
+    log(f"  K3 at {N_LARGE} x {N_LARGE}: {k_ms:.3f} ms per launch (CUDA "
+        f"events, mean of 3), {bound_text(b)}")
+    rec["k3_ms"] = k_ms
+    # held against its plain version at this shape on N_SAMPLE receivers,
+    # the blob's and a sample of the rest, against all 262,144 sources:
+    # unmasked, and on the masked ring block's operands with a quarter of
+    # the sources at r2 = -1
+    idx = torch.cat([torch.arange(N_BLOB, device=DEVICE),
+                     N_BLOB + _sample(N_LARGE - N_BLOB, N_SAMPLE - N_BLOB, 21)])
+    compare(f"K3 {N_LARGE} x {N_LARGE}, {N_SAMPLE} receivers", got[idx],
+            A.rect_sweep_ref(ops[0][idx], ops[1][idx], *ops[2:]))
+    gen = torch.Generator().manual_seed(22)
+    src_ok = (torch.rand(N_LARGE, generator=gen) >= 0.25).to(DEVICE)
+    mops = R.masked_rect_operands(out.positions, u, out.positions, v, src_ok,
+                                  cfg)
+    got = A.rect_sweep(*mops)
+    compare(f"K3 masked ({int((~src_ok).sum())} of {N_LARGE} sources at "
+            f"r2 = -1), {N_SAMPLE} receivers", got[idx],
+            A.rect_sweep_ref(mops[0][idx], mops[1][idx], *mops[2:]))
+    del carry0, carry, out, ref, ops, mops, got
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_column_slab():
+    """parallel/domain.py's column-slab cell path at full width on one
+    rank: one K1 halo launch a step, held to simulate_cadenced."""
+    from particle3d_tpu_torch.engine.step import simulate_cadenced
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.ops.celllist_sweep import drift_budget
+    from particle3d_tpu_torch.parallel import make_mesh, sharded_cell_simulate
+
+    st, cfg, dt = make_scene("particle_life_large", seed=0, device=DEVICE)
+    cfg = cfg.replace(cell_capacity=64)
+    every = 4
+    log(f"[21] column-slab cell path: sharded_cell_simulate on "
+        f"particle_life_large (N={N_LARGE}, grid {cfg.cell_grid}, cap 64), "
+        f"{STEPS} steps rebuilt every {every}, one rank")
+    mesh = make_mesh(1, device=DEVICE)
+    sync()
+    reset_kernel_launches()
+    out, drift = sharded_cell_simulate(st, cfg, dt, STEPS, mesh,
+                                       rebuild_every=every)
+    sync()
+    counts = kernel_launches()
+    _expect("sharded_cell_simulate", counts, {"celllist_halo": STEPS})
+    PATH_LAUNCHES["celllist_sweep_halo"]["sharded_cell_simulate 262k"] = \
+        counts["celllist_halo"]
+    budget = drift_budget(cfg, cfg.cell_grid)
+    if not float(drift) < budget:
+        raise AssertionError(f"drift {float(drift)} past the budget {budget}")
+    _finite("sharded_cell_simulate", out)
+    ref, rdrift, dropped = simulate_cadenced(st, cfg, dt, STEPS,
+                                             rebuild_every=every)
+    gap = _pos_gap(out, ref, float(cfg.world_size))
+    same = (torch.equal(out.positions, ref.positions)
+            and torch.equal(out.velocities, ref.velocities))
+    log(f"  against simulate_cadenced: max |dpos| / world {gap:.3e}, "
+        f"{'bit-identical' if same else 'not bit-identical'}; drift "
+        f"{float(drift):.6f} (budget {budget:.6f}), dropped {int(dropped)}")
+    if int(dropped) or not gap <= 1e-5:
+        raise AssertionError("column-slab path off simulate_cadenced")
+    ms, _ = timed_ms(lambda: sharded_cell_simulate(
+        st, cfg, dt, STEPS, mesh, rebuild_every=every)[0], 1)
+    cms, _ = timed_ms(lambda: simulate_cadenced(
+        st, cfg, dt, STEPS, rebuild_every=every)[0], 1)
+    log(f"  {ms / STEPS:.3f} ms/step against simulate_cadenced's "
+        f"{cms / STEPS:.3f} in this run (CUDA events, {STEPS} steps each)")
+    return {"ms_per_step": ms / STEPS, "cadenced_ms_per_step": cms / STEPS}
+
+
+def phase_two_level():
+    """The 2-level ring on a 1 x 1 mesh: K3, held to simulate."""
+    from particle3d_tpu_torch.engine.step import simulate
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.parallel import (make_mesh_2d,
+                                               shard_state_2level,
+                                               sharded_simulate_2level)
+
+    log(f"[22] 2-level ring: sharded_simulate_2level on a 1 x 1 mesh, the "
+        f"flagship scene (reference, N={N_FLAGSHIP}) on allpairs_pallas, "
+        f"2 steps")
+    st, cfg, dt = make_scene("reference", seed=0, n=N_FLAGSHIP, device=DEVICE)
+    cfg = cfg.replace(neighbor="allpairs_pallas")
+    mesh = make_mesh_2d(1, 1, device=DEVICE)
+    ref = simulate(st, cfg, dt, 2)
+    sync()
+    reset_kernel_launches()
+    out = sharded_simulate_2level(shard_state_2level(st, mesh), cfg, dt, 2,
+                                  mesh)
+    sync()
+    counts = kernel_launches()
+    _expect("sharded_simulate_2level", counts, {"allpairs_rect": 2})
+    PATH_LAUNCHES["allpairs_rect"]["sharded_simulate_2level 4k"] = \
+        counts["allpairs_rect"]
+    rel = _rel_pos(out, ref)
+    log(f"  against simulate (K2): max |dpos| / scale {rel:.3e}")
+    if not rel < 5e-5:
+        raise AssertionError("2-level ring off simulate")
+
+
+def _run_bounded(cmd, timeout_s):
+    """Run ``cmd`` in a session of its own; on timeout kill the whole
+    session (a launcher and its workers). Returns (rc, stdout, stderr)."""
+    import os
+    import signal
+
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        out, err = proc.communicate()
+        return 124, out, err
+    return proc.returncode, out, err
+
+
+def phase_multicard():
+    """D >= 2 on NCCL, one card a rank: the dry run, and slab_2m gathered
+    at D ranks against one rank (torchrun)."""
+    from particle3d_tpu_torch.parallel.dryrun import dryrun_multichip
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        log(f"[22b] multi-card check not run: {count} card(s) (dryrun_multichip "
+            f"and the D >= 2 slab_2m comparison need two or more)")
+        return None
+    log(f"[22b] {count} cards: dryrun_multichip on NCCL, and slab_2m "
+        f"gathered at D ranks against one (torchrun)")
+    rec = {}
+    for d in (2, 4):
+        if d > count:
+            continue
+        t0 = time.perf_counter()
+        for line in dryrun_multichip(d):
+            log(f"  {line}")
+        log(f"  dryrun_multichip({d}): ok in {time.perf_counter() - t0:.1f} s")
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={d}", "-m",
+               "particle3d_tpu_torch.parallel.dryrun", "--slab-parity",
+               "slab_2m", "--steps", "8"]
+        rc, out, err = _run_bounded(cmd, 600)
+        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+        res = json.loads(lines[-1]) if lines else None
+        log(f"  torchrun D={d} slab_2m against D=1: rc {rc}, {res}")
+        if rc != 0 or res is None or not res["ok"]:
+            raise AssertionError(f"slab_2m at D={d} off D=1 (rc {rc}):\n"
+                                 f"{err[-3000:]}")
+        rec[d] = res
+    return rec
+
 
 def main():
     if not torch.cuda.is_available():
@@ -1917,6 +2333,11 @@ def main():
     _, app = phase_app()
     phase_server(app)
     del app
+    phase_slab_adaptive()
+    phase_slab_terminal()
+    phase_column_slab()
+    phase_two_level()
+    phase_multicard()
     log(smi)  # the card and its power limit, beside the numbers below
     src = "particle3d_tpu_torch/csrc/allpairs_sweep.cu"
     table = [("celllist_sweep", "particle3d_tpu_torch/csrc/celllist_sweep.cu",
@@ -1938,7 +2359,9 @@ def main():
         "name": kname, "route": "cuda", "source": source, "replaces": repl,
         "launches": r["launches"], "max_abs_err": r["max_abs_err"],
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound"][0],
-        "bound_by": r["bound"][1], "library_ms": None, "shape": r["shape"]}
+        "bound_by": r["bound"][1], "library_ms": None, "shape": r["shape"],
+        **({"launches_by_path": PATH_LAUNCHES[kname]}
+           if PATH_LAUNCHES.get(kname) else {})}
         for kname, source, repl, r in table]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))

@@ -266,11 +266,13 @@ def simulate_dense_carry(ds, cfg: SimConfig, dt, num_steps: int, nsc: int,
 
 
 def _cadenced_window(s: ParticleState, cfg: SimConfig, dt, k: int, nsc: int,
-                     cap: int):
+                     cap: int, forces_for=None):
     """k steps on one frozen layout built from ``s``. Returns ``(state,
     drift, dropped)`` with device scalars: the largest displacement from
     the layout's anchor, and the particles the build left without a slot
-    (they keep their state from ``s``)."""
+    (they keep their state from ``s``). ``forces_for(layout)`` gives the
+    slot forces ``f(pos_flat, cfg)`` on the layout (default:
+    ``dense_forces``; ``parallel.domain`` splits them over ranks)."""
     from ..ops.celllist_sweep import (build_layout, dense_forces, layout_drift,
                                       slot_of_particle)
 
@@ -293,9 +295,11 @@ def _cadenced_window(s: ParticleState, cfg: SimConfig, dt, k: int, nsc: int,
     dense = ParticleState(*(to_slots(getattr(s, f))
                             for f in ParticleState.__dataclass_fields__))
     kick = float(F.kick_scale(cfg))
+    forces = (forces_for(layout) if forces_for is not None else
+              lambda p, c: dense_forces(layout, p, c, nsc, cap))
 
     def accel_fn(positions, st, c):
-        return dense_forces(layout, positions, c, nsc, cap) * kick
+        return forces(positions, c) * kick
 
     for _ in range(k):
         dense = step(dense, cfg, dt, accel_fn=accel_fn)

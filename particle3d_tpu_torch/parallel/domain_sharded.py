@@ -53,8 +53,14 @@ or, stay-sharded over several windows::
         carry, diag = sharded_dense_steps(carry, cfg, dt, k, mesh, n=n)
     state = gather_sharded_dense(carry, state, mesh)
 
-Not ported yet (ROADMAP.md queue 1): ``recap_sharded_dense`` and the
-adaptive driver ``sharded_dense_adaptive``.
+or with the capacity ladder and its exact terminal rung, which rewind any
+window that would commit rows without their pair forces::
+
+    carry, cap, history = sharded_dense_adaptive(carry, cfg, dt, steps,
+                                                 mesh, n=n)
+
+``recap_sharded_dense`` grows a carry's capacity in place (the ladder's
+rung) and ``sharded_exact_steps`` is the capacity-free terminal rung.
 """
 
 from __future__ import annotations
@@ -239,11 +245,12 @@ def slab_pack(pos_flat, dat, r2, cfg: SimConfig, g: _Geom, me: int):
     return pos_d, dat[:, fu].reshape(cols, cs, p), pack
 
 
-def fix_halos(from_left, from_right, cfg: SimConfig, g: _Geom, me: int):
-    """The received halo planes as the kernel must see them. Walled: the
-    ring's wraparound planes are not neighbours, so the edge ranks kill
-    them through r2 = -1. Periodic: they are images a box away, so their x
-    shifts by -+w (halo mode applies no x image shift in the kernel)."""
+def fix_halos(from_left, from_right, cfg: SimConfig, d: int, me: int):
+    """The halo planes rank ``me`` of ``d`` received, as the kernel must
+    see them. Walled: the ring's wraparound planes are not neighbours, so
+    the edge ranks kill them through r2 = -1 (the last channel). Periodic:
+    they are images a box away, so their x shifts by -+w (halo mode
+    applies no x image shift in the kernel)."""
     w = f32(cfg.world_size)
 
     def kill(t):
@@ -252,10 +259,11 @@ def fix_halos(from_left, from_right, cfg: SimConfig, g: _Geom, me: int):
     def shift(t, dx):
         return torch.cat([t[..., :1] + dx, t[..., 1:]], -1)
 
+    wrap = bool(cfg.wrap_forces)
     if me == 0:
-        from_left = shift(from_left, float(-w)) if g.wrap else kill(from_left)
-    if me == g.d - 1:
-        from_right = shift(from_right, float(w)) if g.wrap else kill(from_right)
+        from_left = shift(from_left, float(-w)) if wrap else kill(from_left)
+    if me == d - 1:
+        from_right = shift(from_right, float(w)) if wrap else kill(from_right)
     return from_left, from_right
 
 
@@ -283,7 +291,7 @@ def _halo_forces(pos_flat, dat, r2, cfg: SimConfig, g: _Geom, mesh: Mesh,
 
     def halos():
         (from_left,), (from_right,) = pending.wait()
-        return fix_halos(from_left, from_right, cfg, g, me)
+        return fix_halos(from_left, from_right, cfg, g.d, me)
 
     def run_call(recv_pos, recv_u, ext):
         out = column_sweep_forces(
@@ -798,28 +806,44 @@ def sharded_relayout(carry, cfg: SimConfig, mesh: Mesh, passes: int = 1,
             (mesh.pmax(servable), tot[0], tot[1]))
 
 
-def _grow_limbo(carry, cfg: SimConfig, mesh: Mesh, nsc: int, cap: int,
-                limbocap_new: int):
-    """Pad this rank's limbo to ``limbocap_new`` rows and drain its in-slab
-    limbo rows into free slots (the JAX ``recap_sharded_dense`` at an
-    unchanged cell capacity)."""
+def recap_sharded_dense(carry, cfg: SimConfig, mesh: Mesh, nsc: int,
+                        cap_old: int, cap_new: int,
+                        limbocap_new: int | None = None):
+    """Grow this rank's carry from ``cap_old`` to ``cap_new`` slots a cell
+    in place of a rebuild: every cell's slot block is padded with empty
+    slots and its occupants keep theirs. The limbo grows to
+    ``limbocap_new`` rows when that is larger. Limbo rows whose cell is in
+    this rank's slab are then drained into free slots (the step's
+    placement rule): left in limbo they would get no pair forces beyond the
+    sidecar's budget, the inexactness the caller grew the capacity to end.
+    Limbo rows of other slabs stay and ship with the next step. Collective-
+    free. Raises for ``cap_new < cap_old``."""
+    if cap_new < cap_old:
+        raise ValueError("recap only grows: cap_new >= cap_old")
     data, pid, ld, lp, lost = carry
-    grow = limbocap_new - lp.shape[0]
+    k_loc = pid.shape[0] // cap_old
+    if cap_new > cap_old:
+        c, pad = data.shape[1], cap_new - cap_old
+        data = torch.cat([data.reshape(k_loc, cap_old, c),
+                          data.new_zeros((k_loc, pad, c))], 1).reshape(-1, c)
+        pid = torch.cat([pid.reshape(k_loc, cap_old),
+                         pid.new_full((k_loc, pad), -1)], 1).reshape(-1)
+    grow = (0 if limbocap_new is None else limbocap_new) - lp.shape[0]
     if grow > 0:
         ld = torch.cat([ld, ld.new_zeros((grow, ld.shape[1]))])
         lp = torch.cat([lp, lp.new_full((grow,), -1)])
-    k_loc = pid.shape[0] // cap
     cell_lo = mesh.rank * k_loc
     tgt = torch.where(lp >= 0, bin_sid(ld[:, _POS], cfg, nsc) - cell_lo, -1)
     valid = (lp >= 0) & (tgt >= 0) & (tgt < k_loc)
-    order, dst, can = _assign_slots(pid, tgt, valid, k_loc, cap)
+    order, dst, can = _assign_slots(pid, tgt, valid, k_loc, cap_new)
     data = _set_drop(data, dst, ld[order])
     pid = _set_drop(pid, dst, torch.where(can, lp[order], -1))
     return data, pid, ld[order], torch.where(can, -1, lp[order]), lost
 
 
 def _relayout_guarded(carry, cfg: SimConfig, mesh: Mesh, *, nsc: int, cap: int,
-                      mcap: int | None, ocap: int, n: int, verbose=None):
+                      mcap: int | None, ocap: int, n: int, verbose=None,
+                      migcap: int | None = None):
     """Transport-only layout repair that never loses rows: a relayout whose
     limbo overflows is discarded, limbo grows 4x on the pre-relayout carry
     (still intact: the step functions never write their inputs) and it
@@ -828,8 +852,8 @@ def _relayout_guarded(carry, cfg: SimConfig, mesh: Mesh, *, nsc: int, cap: int,
     while True:
         new_c, (servable, unserv, lost) = sharded_relayout(
             carry, cfg.replace(cell_capacity=cap), mesh,
-            passes=mesh.size // 2 + 1, nsc=nsc, cap=cap, mcap=mcap, n=n,
-            ocap=ocap)
+            passes=mesh.size // 2 + 1, nsc=nsc, cap=cap, mcap=mcap,
+            migcap=migcap, n=n, ocap=ocap)
         if int(lost) == 0:
             return new_c, int(servable), int(unserv)
         lc = carry[3].shape[0]
@@ -839,4 +863,253 @@ def _relayout_guarded(carry, cfg: SimConfig, mesh: Mesh, *, nsc: int, cap: int,
         if verbose:
             verbose(f"[slab] relayout overflowed limbo ({int(lost)} rows "
                     f"would be lost): rewinding transport, limbocap={4 * lc}")
-        carry = _grow_limbo(carry, cfg, mesh, nsc, cap, 4 * lc)
+        carry = recap_sharded_dense(carry, cfg, mesh, nsc, cap, cap,
+                                    limbocap_new=4 * lc)
+
+
+LADDER_ENDS = ("exact", "exact_replicated", "warn", "raise")
+
+
+def sharded_dense_adaptive(carry, cfg: SimConfig, dt, num_steps: int,
+                           mesh: Mesh, n: int, nsc: int | None = None,
+                           cap: int | None = None, mcap: int | None = None,
+                           window: int = 64, max_cap: int = 512,
+                           verbose=None, on_ladder_end: str = "exact",
+                           state: ParticleState | None = None,
+                           ocap: int | None = None,
+                           migcap: int | None = None):
+    """Capacity-adaptive stay-sharded driver: the slab counterpart of
+    ``engine.step.simulate_dense_adaptive``. Every rank calls it with its
+    own carry; the decisions come from diagnostics reduced over the mesh,
+    so all ranks take the same branch.
+
+    Runs ``window``-step chunks of ``sharded_dense_steps``. A window whose
+    diagnostics report trouble is rewound (the step functions never write
+    their inputs, so the pre-window carry is still live) and run again
+    after the bound at fault grows:
+
+      * movers past ``mcap``: ``mcap`` doubles;
+      * rows lost past the limbo: the limbo grows 4x (``recap``);
+      * masked or unserved limbo rows: the cell capacity doubles, up to
+        ``max_cap`` (K1 takes any capacity; the JAX package's alignment and
+        VMEM ladder is not ported), and the carry is recapped in place.
+
+    When the ladder ends, or six rewinds in a row at one step leave
+    trouble, ``on_ladder_end`` decides:
+
+      * ``"exact"``: the window is rewound and served on the capacity-free
+        ring all-pairs rung, stay-sharded (``sharded_exact_steps``, K3 on
+        the card, O(N/D) rows a rank). After each exact window a
+        transport-only relayout (``sharded_relayout``, guarded against
+        loss) repairs the slots, and the grid path resumes once every row
+        is in its slab and the misplaced rows fit the sidecar (``ocap``).
+      * ``"exact_replicated"`` (needs ``state``, the particle-order
+        template of species and masses): the window runs on the gathered
+        state with ``engine.step.simulate_culled`` (K4 on the card), and a
+        clean ``build_sharded_dense`` at the current capacity resumes the
+        grid path. Without ``state`` it acts as ``"warn"``.
+      * ``"warn"``: the window is committed with its unserved rows
+        (``warnings.warn`` and ``verbose``); they get no pair forces for
+        those steps, never wrong ones, and are never lost.
+      * ``"raise"``: ``RuntimeError``.
+
+    The host reads a few reduced scalars once a window, never inside a
+    step. Returns ``(carry, cap, history)``; history lists ``(steps, cap,
+    unserved)`` per committed window, ``cap`` the string ``"exact"`` for
+    windows of a terminal rung (unserved always 0 there)."""
+    import warnings
+
+    from ..engine.step import simulate_culled
+
+    if on_ladder_end not in LADDER_ENDS:
+        raise ValueError(f"on_ladder_end must be one of {LADDER_ENDS}, got "
+                         f"{on_ladder_end!r}")
+    nsc = cfg.cell_grid if nsc is None else nsc
+    cap = cfg.cell_capacity if cap is None else cap
+    if nsc is None or cap is None:
+        raise ValueError("sharded_dense_adaptive needs cfg.cell_grid / "
+                         "cfg.cell_capacity")
+    d = mesh.size
+    if mcap is None:
+        mcap = max(512, -(-max(n // (8 * d), 1) // 128) * 128)
+    if ocap is None:
+        ocap = OCAP if cfg.overflow_capacity is None else cfg.overflow_capacity
+    if nsc < 3:
+        ocap = 0
+    say = verbose or (lambda msg: None)
+    replicated = on_ladder_end == "exact_replicated"
+    exact_ok = on_ladder_end == "exact" or (replicated and state is not None)
+    done = 0
+    history = []
+    ladder_ended = False
+    exact_mode = False
+    live = None  # the gathered particle-order state of the replicated rung
+
+    def next_cap(c):
+        return min(2 * c, max_cap) if c < max_cap else None
+
+    def rcap_for(c):
+        """Rows of the exact rung's compaction buffer: every rank's live
+        rows (no row migrates inside an exact window), rounded up to a
+        power of two, the same on every rank."""
+        mine = (c[1] >= 0).sum() + (c[3] >= 0).sum()
+        mx = int(mesh.pmax(mine.reshape(1))[0])
+        nl = c[1].shape[0] + c[3].shape[0]
+        return min(nl, max(256, 1 << (max(mx, 1) - 1).bit_length()))
+
+    def relayout(c):
+        return _relayout_guarded(c, cfg, mesh, nsc=nsc, cap=cap, mcap=mcap,
+                                 ocap=ocap, n=n, verbose=verbose,
+                                 migcap=migcap)
+
+    def build(st, limbocap=None):
+        return build_sharded_dense(st, cfg.replace(cell_capacity=cap), mesh,
+                                   nsc=nsc, cap=cap, mcap=mcap, migcap=migcap,
+                                   limbocap=limbocap)
+
+    def run_exact_window(k):
+        nonlocal carry, live
+        if replicated:
+            live, _ = simulate_culled(live, cfg, dt, k, window=min(k, 16))
+            return
+        carry, overflow = sharded_exact_steps(carry, cfg, dt, k, mesh,
+                                              rcap=rcap_for(carry))
+        if int(overflow):  # rcap covers every rank's live rows
+            raise RuntimeError(f"exact rung: {int(overflow)} rows past rcap")
+
+    def try_reenter_slab():
+        nonlocal carry, exact_mode, live
+        if not replicated:
+            carry, servable, unserv = relayout(carry)
+            if unserv == 0 and servable <= ocap:
+                exact_mode = False
+                say(f"[slab-adaptive] layout repaired (overflow {servable}/"
+                    f"rank <= ocap={ocap}): re-entering the slab path at "
+                    f"cap={cap}")
+            return
+        new = build(live)
+        limbo_n, lost = (int(x) for x in torch.stack(
+            [mesh.psum((new[3] >= 0).sum()), new[4]]).tolist())
+        if limbo_n == 0 and lost == 0:
+            carry, exact_mode, live = new, False, None
+            say(f"[slab-adaptive] scene fits cap={cap} again: re-entering "
+                f"the slab path")
+
+    def enter_exact(prev, why):
+        nonlocal carry, exact_mode, live
+        exact_mode = True
+        if replicated:
+            live = gather_sharded_dense(prev, state, mesh)
+            say(f"{why}: rewinding the window, serving exact windows on the "
+                f"gathered state (simulate_culled) until the scene fits "
+                f"again")
+            return
+        carry = prev
+        say(f"{why}: rewinding the window, serving exact windows "
+            f"stay-sharded on the ring all-pairs rung; a relayout re-probes "
+            f"the slab path after each")
+
+    def pre_unserved(c):
+        """Limbo rows of a fresh carry past the sidecar's budget, summed
+        over the mesh: they would be force-frozen before the first step's
+        placement pass drains them."""
+        return int(mesh.psum(torch.clamp((c[3] >= 0).sum() - ocap, min=0)))
+
+    excess = pre_unserved(carry)
+    while excess > 0:
+        new_cap = next_cap(cap)
+        if new_cap is None:
+            ladder_ended = True
+            msg = (f"[slab-adaptive] {excess} initial-build rows in limbo "
+                   f"beyond the sidecar budget (ocap={ocap}/rank) and the "
+                   f"ladder ended at cap={cap}")
+            if on_ladder_end == "raise":
+                raise RuntimeError(msg)
+            if exact_ok:
+                enter_exact(carry, msg)
+            else:
+                say(msg)
+            break
+        say(f"[slab-adaptive] draining {excess} initial-build limbo rows "
+            f"beyond the sidecar budget: cap={cap} -> {new_cap}")
+        carry = recap_sharded_dense(carry, cfg, mesh, nsc, cap, new_cap)
+        cap = new_cap
+        excess = pre_unserved(carry)
+
+    rewinds_here = 0  # consecutive rewinds at the same step (loop guard)
+    while done < num_steps:
+        k = min(window, num_steps - done)
+        if exact_mode:
+            run_exact_window(k)
+            done += k
+            history.append((k, "exact", 0))
+            if done < num_steps:
+                try_reenter_slab()
+            continue
+        prev = carry
+        carry, diag = sharded_dense_steps(
+            carry, cfg.replace(cell_capacity=cap), dt, k, mesh, nsc=nsc,
+            cap=cap, mcap=mcap, migcap=migcap, n=n, ocap=ocap)
+        mov, mask, limbo, lost, _ = (int(x) for x in
+                                     torch.stack(diag).tolist())
+        trouble = mask + limbo  # both are rows without their pair forces
+        if mov > mcap and rewinds_here < 6:
+            mcap = -(-(2 * mov) // 128) * 128
+            say(f"[slab-adaptive] step {done}: {mov} movers > mover cap: "
+                f"rewinding the window, mcap={mcap}")
+            carry = prev
+            rewinds_here += 1
+            continue
+        if lost > 0 and rewinds_here < 6:
+            lc = prev[3].shape[0]
+            say(f"[slab-adaptive] step {done}: {lost} rows lost past limbo: "
+                f"rewinding the window, limbocap={4 * lc}")
+            carry = recap_sharded_dense(prev, cfg, mesh, nsc, cap, cap,
+                                        limbocap_new=4 * lc)
+            rewinds_here += 1
+            continue
+        if trouble > 0 and not ladder_ended and rewinds_here < 6:
+            new_cap = next_cap(cap)
+            if new_cap is not None:
+                say(f"[slab-adaptive] step {done}: {mask} masked + {limbo} "
+                    f"limbo at cap={cap}: rewinding the window, "
+                    f"cap={new_cap}")
+                carry = recap_sharded_dense(prev, cfg, mesh, nsc, cap,
+                                            new_cap)
+                cap = new_cap
+                rewinds_here += 1
+                continue
+            ladder_ended = True
+        if trouble > 0:
+            msg = (f"[slab-adaptive] step {done}: {mask} masked + {limbo} "
+                   f"limbo at cap={cap} with no larger capacity (cell_grid="
+                   f"{nsc}, " + ("ladder ended" if ladder_ended
+                                 else "rewind guard exhausted") + ")")
+            if on_ladder_end == "raise":
+                raise RuntimeError(msg)
+            if exact_ok:
+                enter_exact(prev, msg)
+                continue
+            msg += (": committing the window; the unserved rows get no pair "
+                    "forces for these steps, and none is lost")
+            warnings.warn(msg, RuntimeWarning, stacklevel=2)
+            say(msg)
+        done += k
+        rewinds_here = 0
+        history.append((k, cap, trouble))
+    if exact_mode and replicated:
+        # the trajectory lives in the gathered state: build a carry of it,
+        # growing the limbo until the build loses nothing (the scene may
+        # still be denser than cap)
+        lc = carry[3].shape[0]
+        while True:
+            new = build(live, limbocap=lc)
+            if int(new[4]) == 0:
+                break
+            lc *= 4
+        carry = new
+    elif exact_mode:
+        # the carry is the state: one last loss-guarded relayout tidies
+        # the slots for whoever reads it next
+        carry, _, _ = relayout(carry)
+    return carry, cap, history

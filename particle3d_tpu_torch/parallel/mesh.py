@@ -19,8 +19,17 @@ device. The collectives the parallel code needs are methods:
 
 At size 1 a permute to self returns its inputs, as it does on a 1-device
 JAX mesh, and the reductions are the identity: that is their meaning, not
-a fallback. JAX's ``particle_sharding`` / ``replicated`` have no
-counterpart: each rank holds its own shard.
+a fallback. The JAX module's ``make_mesh`` and ``make_mesh_2d`` have
+their counterparts here; its ``particle_sharding`` and ``replicated`` name
+placements of a global array, and here each rank holds its own shard
+instead (``ring.shard_state``, ``launch.shard_state_2level``).
+
+A ``Mesh`` may span a subgroup of the process group: ``ranks`` lists the
+global rank of each of its members, in mesh order, and the ring's peers
+are taken from it (``torch.distributed``'s point-to-point calls address
+global ranks). ``make_mesh_2d`` builds the (hosts x devices) mesh of the
+2-level ring: a ``Mesh2D`` holding two such 1-D views, ``ici`` over the
+devices of one host and ``dcn`` across the hosts.
 """
 
 from __future__ import annotations
@@ -41,7 +50,14 @@ class Mesh:
     size: int
     rank: int
     device: torch.device
-    group: Any = None  # the default process group; None at size 1
+    group: Any = None  # the process group; None at size 1
+    # global rank of each member in mesh order; None: the WORLD group,
+    # where member r is global rank r
+    ranks: tuple[int, ...] | None = None
+
+    def _global(self, member: int) -> int:
+        member %= self.size
+        return member if self.ranks is None else self.ranks[member]
 
     def exchange_start(self, to_right=(), to_left=()):
         """Post one batch of ring exchanges: each tensor of ``to_right``
@@ -56,8 +72,8 @@ class Mesh:
         to_left = [t.contiguous() for t in to_left]
         if self.size == 1:
             return _Done((to_right, to_left))
-        right = (self.rank + 1) % self.size
-        left = (self.rank - 1) % self.size
+        right = self._global(self.rank + 1)
+        left = self._global(self.rank - 1)
         from_left = [torch.empty_like(t) for t in to_right]
         from_right = [torch.empty_like(t) for t in to_left]
         ops = [dist.P2POp(dist.isend, t, right, self.group, 2 * k)
@@ -126,6 +142,15 @@ def balanced_counts(n: int, d: int) -> list[int]:
     return [n // d + (1 if r < n % d else 0) for r in range(d)]
 
 
+def _rank_device(device) -> torch.device:
+    """``device`` resolved for this rank: a bare "cuda" is the current
+    card (``initialize_distributed`` sets it to ``cuda:<local rank>``)."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
 def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     """The mesh of this rank. ``n_devices=1`` needs no process group; a
     larger mesh needs an initialised group (``launch.initialize_distributed``)
@@ -138,9 +163,7 @@ def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
     world = dist.get_world_size() if initialised else 1
     if n_devices is None:
         n_devices = world
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        dev = torch.device("cuda", torch.cuda.current_device())
+    dev = _rank_device(device)
     if n_devices == 1:  # this rank alone: no collective is ever issued
         return Mesh(1, 0, dev, None)
     if not initialised:
@@ -152,3 +175,67 @@ def make_mesh(n_devices: int | None = None, device="cuda") -> Mesh:
         raise ValueError(f"make_mesh: {n_devices} ranks requested but the "
                          f"process group has {world}")
     return Mesh(n_devices, dist.get_rank(), dev, dist.group.WORLD)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh2D:
+    """A rank's view of a (dcn, ici) mesh of ``dcn * ici`` ranks, global
+    rank ``i * ici + j`` at row i, column j: ``ici`` is row i's 1-D mesh
+    (one host's devices), ``dcn`` column j's (one device of each host).
+    Particle blocks follow the global ranks, as JAX's ``P(("dcn",
+    "shard"))`` orders them."""
+
+    dcn: Mesh
+    ici: Mesh
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return self.dcn.size, self.ici.size
+
+    @property
+    def size(self) -> int:
+        return self.dcn.size * self.ici.size
+
+    @property
+    def rank(self) -> int:
+        return self.dcn.rank * self.ici.size + self.ici.rank
+
+    @property
+    def device(self) -> torch.device:
+        return self.ici.device
+
+
+def make_mesh_2d(dcn: int, ici: int, device="cuda") -> Mesh2D:
+    """The (hosts x devices) mesh over every rank of the process group,
+    which must hold exactly ``dcn * ici`` ranks (a 1 x 1 mesh needs none).
+    Every rank creates every subgroup, rows then columns, in one order, as
+    ``torch.distributed.new_group`` requires."""
+    if dcn < 1 or ici < 1:
+        raise ValueError(f"make_mesh_2d: bad shape {dcn}x{ici}")
+    dev = _rank_device(device)
+    if dcn * ici == 1:
+        one = Mesh(1, 0, dev, None)
+        return Mesh2D(one, one)
+    initialised = dist.is_available() and dist.is_initialized()
+    world = dist.get_world_size() if initialised else 1
+    if world != dcn * ici:
+        raise ValueError(f"make_mesh_2d: {dcn}x{ici} ranks requested but the "
+                         f"process group has {world}"
+                         + ("" if initialised else " (not initialised)"))
+    me = dist.get_rank()
+
+    def view(rows, size, member):
+        mine = None
+        for ranks in rows:
+            ranks = tuple(ranks)
+            group = dist.new_group(list(ranks)) if size > 1 else None
+            if me in ranks:
+                mine = Mesh(size, member, dev, group,
+                            ranks if size > 1 else None)
+        return mine
+
+    i, j = divmod(me, ici)
+    ici_mesh = view([range(a * ici, (a + 1) * ici) for a in range(dcn)], ici,
+                    j)
+    dcn_mesh = view([range(b, dcn * ici, ici) for b in range(ici)], dcn, i)
+    return Mesh2D(dcn_mesh, ici_mesh)

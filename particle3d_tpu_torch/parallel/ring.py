@@ -9,7 +9,10 @@ current block's forces, so transfer and compute overlap.
 Shards may differ in size (N need not divide by the mesh size): blocks are
 padded to the largest shard and a validity mask circulates with them.
 
-``ring_forces_2level`` waits for the 2-level launch (ROADMAP.md queue 1).
+``ring_forces_2level`` is the ring of a (hosts x devices) mesh
+(``mesh.make_mesh_2d``): the block makes a full revolution of the fast
+in-host ring between single hops across hosts, so only ``d_dcn`` of its
+``d_dcn * d_ici`` hops leave a host.
 """
 
 from __future__ import annotations
@@ -21,23 +24,46 @@ from ..engine.step import step as _step
 from ..ops import forces as F
 from ..ops.allpairs import allpairs_forces
 from ..state import ParticleState
-from .mesh import Mesh, balanced_counts
+from .mesh import Mesh, Mesh2D, balanced_counts
+
+
+def masked_rect_operands(positions, u, src_pos, src_v, src_ok,
+                         cfg: SimConfig):
+    """K3's operands for the receivers against one source block, the
+    masked sources (``src_ok`` False; None masks none) gated off through
+    r2 = -1."""
+    from ..ops.allpairs_sweep import rect_operands
+
+    ops = list(rect_operands(positions, u, src_pos, src_v, cfg))
+    if src_ok is not None:
+        ops[4] = torch.where(src_ok, ops[4], -1.0)
+    return ops
+
+
+def _rect_forces(positions, u, src_pos, src_v, src_ok, cfg: SimConfig):
+    """K3 on ``masked_rect_operands``; plain K3 on CPU tensors."""
+    from ..ops.allpairs_sweep import rect_sweep
+
+    return rect_sweep(*masked_rect_operands(positions, u, src_pos, src_v,
+                                            src_ok, cfg))
 
 
 def _block_forces(positions, u, src_pos, src_v, src_ok, cfg: SimConfig):
     """Forces on the receivers from one source block: K3 under
-    ``allpairs_pallas`` (masked sources gated off through r2 = -1), plain
-    all-pairs otherwise."""
+    ``allpairs_pallas``, plain all-pairs otherwise."""
     if cfg.neighbor == "allpairs_pallas":
-        from ..ops.allpairs_sweep import (pallas_allpairs_forces,
-                                          rect_operands, rect_sweep)
+        return _rect_forces(positions, u, src_pos, src_v, src_ok, cfg)
+    return allpairs_forces(positions, u, None, cfg, src_positions=src_pos,
+                           src_v=src_v, src_valid=src_ok)
 
-        if src_ok is None:
-            return pallas_allpairs_forces(positions, u, src_v, cfg,
-                                          src_positions=src_pos, src_v=src_v)
-        ops = list(rect_operands(positions, u, src_pos, src_v, cfg))
-        ops[4] = torch.where(src_ok, ops[4], -1.0)
-        return rect_sweep(*ops)
+
+def _masked_block_forces(positions, u, src_pos, src_v, src_ok,
+                         cfg: SimConfig):
+    """``ring_forces_masked``'s block: K3 on CUDA tensors whatever the
+    backend, the plain all-pairs sweep on CPU tensors (the JAX package's
+    XLA sweep)."""
+    if positions.device.type == "cuda":
+        return _rect_forces(positions, u, src_pos, src_v, src_ok, cfg)
     return allpairs_forces(positions, u, None, cfg, src_positions=src_pos,
                            src_v=src_v, src_valid=src_ok)
 
@@ -64,17 +90,38 @@ def ring_forces(positions, u, v, cfg: SimConfig, mesh: Mesh, ok=None):
 
 
 def ring_forces_masked(positions, u, v, ok, cfg: SimConfig, mesh: Mesh):
-    """``ring_forces`` over compacted row buffers with the plain all-pairs
-    sweep, as in the JAX package: ``ok`` marks live rows and circulates
-    with the sources (particle life's repulsion does not depend on the
-    coefficient, so zero-V padding would still repel). Padding receivers
-    compute garbage that callers drop. The exact rung of the slab path
+    """``ring_forces`` over compacted row buffers: ``ok`` marks live rows
+    and circulates with the sources (particle life's repulsion does not
+    depend on the coefficient, so zero-V padding would still repel).
+    Padding receivers compute garbage that callers drop. Each block is a
+    masked rectangular sweep, K3 on the card whatever ``cfg.neighbor``
+    says. The exact rung of the slab path
     (``domain_sharded.sharded_exact_steps``) runs on it."""
-    def plain(pos, u_, src_pos, src_v, src_ok, c):
-        return allpairs_forces(pos, u_, None, c, src_positions=src_pos,
-                               src_v=src_v, src_valid=src_ok)
+    return _ring(positions, u, v, ok, cfg, mesh, _masked_block_forces)
 
-    return _ring(positions, u, v, ok, cfg, mesh, plain)
+
+def ring_forces_2level(positions, u, v, cfg: SimConfig, mesh: Mesh2D):
+    """Forces [n_local, 3] on this rank's receivers over a (dcn, ici) mesh:
+    the source block circulates the ``ici`` ring once, then hops once along
+    ``dcn``, ``d_dcn`` times. A block back from a full revolution is the
+    one that started it, so the revolution's last hop and the final
+    ``dcn`` hop are not sent; the blocks are summed in the JAX package's
+    order. All ranks hold blocks of one size."""
+    acc = torch.zeros_like(positions)
+    blocks = [positions, v]
+    d_dcn, d_ici = mesh.shape
+    for outer in range(d_dcn):
+        start = blocks
+        for hop in range(d_ici):
+            pending = (mesh.ici.exchange_start(to_right=blocks)
+                       if hop < d_ici - 1 else None)
+            acc = acc + _block_forces(positions, u, blocks[0], blocks[1],
+                                      None, cfg)
+            if pending is not None:
+                blocks = pending.wait()[0]
+        if outer < d_dcn - 1:
+            blocks = mesh.dcn.ppermute(start, 1)
+    return acc
 
 
 def shard_state(state: ParticleState, mesh: Mesh) -> ParticleState:

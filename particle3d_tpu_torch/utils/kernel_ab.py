@@ -160,7 +160,7 @@ def _k1_halo(name):
     aligned = (pid >= 0) & (bin_sid(data[:, :3], cfg, nsc) == cell_of)
     r2 = torch.where(aligned, float(r2_gate(cfg)), -1.0)
     pos_d, u_d, pack = DS.slab_pack(data[:, :3], data, r2, cfg, g, 0)
-    fl, fr = DS.fix_halos(pack[-nsc:], pack[:nsc], cfg, g, 0)
+    fl, fr = DS.fix_halos(pack[-nsc:], pack[:nsc], cfg, g.d, 0)
     ops = DS.halo_call_operands(pos_d, u_d, torch.cat([fl, pack, fr]), cfg,
                                 cap)
     return _k1_case(ops, cfg, nsc, cap, True)

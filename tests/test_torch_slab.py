@@ -117,7 +117,7 @@ def test_halo_ref_matches_jax_call(walled, shape, wide):
                                      tcfg, cap)
         r2c = r2c[nsc:-nsc]
     else:
-        fl, fr = TDS.fix_halos(pack[-nsc:], pack[:nsc], tcfg, g, 0)
+        fl, fr = TDS.fix_halos(pack[-nsc:], pack[:nsc], tcfg, g.d, 0)
         ops = TDS.halo_call_operands(pos_d, u_d, torch.cat([fl, pack, fr]),
                                      tcfg, cap)
     assert ops[1].shape[1] == (16 if wide else 8)
@@ -142,7 +142,7 @@ def test_halo_mode_equals_full_grid_sweep_on_one_rank(walled):
     cfg = _cfg(walled=walled)
     tcfg, g, pos_d, u_d, pack, r2 = _slab_layout(cfg, seed=3)
     nsc, cap = g.nsc, g.cap
-    fl, fr = TDS.fix_halos(pack[-nsc:], pack[:nsc], tcfg, g, 0)
+    fl, fr = TDS.fix_halos(pack[-nsc:], pack[:nsc], tcfg, g.d, 0)
     ops = TDS.halo_call_operands(pos_d, u_d, torch.cat([fl, pack, fr]), tcfg,
                                  cap)
     args = (pack_params(tcfg), cfg.force_law, not walled, nsc, cap)
@@ -212,7 +212,7 @@ def test_slab_neighborhood_sweeps_matches_jax(walled, self_ring):
     cfg = _cfg(cap=4, walled=walled)
     tcfg, g, pos_d, u_d, pack, r2 = _slab_layout(cfg, n=1200, seed=5)
     nsc = g.nsc
-    fl, fr = TDS.fix_halos(pack[-nsc:], pack[:nsc], tcfg, g, 0)
+    fl, fr = TDS.fix_halos(pack[-nsc:], pack[:nsc], tcfg, g.d, 0)
     ext = torch.cat([fl, pack, fr])
     rng = np.random.default_rng(6)
     m = 40
