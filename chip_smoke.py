@@ -7,12 +7,12 @@ NVIDIA Hopper GPU.
 Runs from the root of a checkout and builds the port's kernels from their
 sources: the column sweep K1 (particle3d_tpu_torch/csrc/celllist_sweep.cu),
 the all-pairs kernels K2, K3 and K4 (csrc/allpairs_sweep.cu) and the
-ghost-image sweep K5 (csrc/allpairs_mxu.cu). Phases, in order; any failure
-exits non-zero:
+ghost-image sweep K5 (csrc/allpairs_mxu.cu), and the C++ reference engine
+(native/oracle.cpp). Phases, in order; any failure exits non-zero:
 
   1. device: name, and power limit as nvidia-smi reports it;
-  2. build the three libraries with nvcc, in parallel (seconds, registers
-     and spills of every kernel);
+  2. build the three kernel libraries with nvcc and the reference engine
+     with g++, in parallel (seconds, registers and spills of every kernel);
   3. K1 against its plain torch version on the same operands: the
      particle_life_large layout at N=262,144 (grid 24), periodic and
      walled at cap 32 and periodic at cap 64, then Lennard-Jones, gravity
@@ -160,7 +160,42 @@ exits non-zero:
      point-to-point on subgroups), and `torchrun -m particle3d_tpu_torch.parallel.dryrun
      --slab-parity slab_2m` at D = 2 (and 4): the gathered state against
      D = 1 (max |dpos| / world <= 1e-5, masked, limbo and lost 0); with
-     one card, a line saying it was not run.
+     one card, a line saying it was not run;
+ 23. the geometry tuner (utils.tune, the `tune` command's function) on
+     particle_life_large: its 8 default candidates (grid 40 at capacities
+     6, 7, 9, 11, 13, 17 and grid 39 at 6, 7) and the preset's hand-tuned
+     (24, 32), 8-step windows, one warm and 3 timed each, run twice: the
+     ranked table (grid, cap, ms/step, masked) of each run, K1 launched
+     candidates x 4 x 8 times in each, whether the top candidate repeats
+     and where the hand-tuned geometry ranks; then every geometry's step-0
+     forces on 4,096 sampled rows against the plain all-pairs sweep over
+     the particles its layout places (a geometry that masks leaves the
+     others out of both sides);
+ 24. autograd: the gradient of the capped snapshot loss with respect to
+     the attraction matrix at tests/test_learn_matrix.py's size (N=96, 2
+     scenes, 2 species) on the card against the CPU (rel. L2 <= 1e-4);
+     python -m particle3d_tpu_torch.examples.learn_matrix at its defaults
+     (N=256, 4 scenes, 12 steps, a snapshot every 3, 300 iterations of
+     clipped Adam): final loss < 0.05 x the first, max matrix error
+     printed; allpairs_pallas, allpairs_culled, allpairs_mxu and
+     celllist_pallas raise under grad before any kernel launch, and step
+     under torch.no_grad;
+ 25. checkpoints (utils.orbax_ckpt): particle_life_large after 4 steps
+     saved synchronously and asynchronously, restored bit-identically, 4
+     more steps from each bit-identical (8 K1 launches); a slab_2m carry
+     at one rank saved after 4 steps, restored and run 4 more, bit-
+     identical to the run continued in memory and to 8 uninterrupted
+     steps (20 K1 halo launches); save and restore MB/s; with two or more
+     cards the same resume at D = 2 on NCCL with async saves;
+ 26. utils.profiling.benchmark_steps on phase 5's 16-step window, beside
+     phase 5's time; utils.profiling.trace of one window, whose file and
+     kernel events hold K1 (16 launches); utils.metrics' kinetic_energy
+     and total_momentum on the card against float64 sums on the host
+     (rel 1e-5);
+ 27. native parity (bench.py's gate): the reference scene at N=1,000, 120
+     steps, simulate on the card on allpairs (plain torch) and on
+     allpairs_pallas (K3, 120 launches), each against the C++ reference
+     engine native/oracle.cpp (built with g++ in phase 2), L2 < 5e-3.
 
 Tolerance for every force comparison: relative L2 error <= 1e-5 and max
 abs error <= 1e-4 * max|F|. Between a kernel and its plain version only
@@ -178,7 +213,7 @@ one pair at distance 0.012 puts the formulation's own max abs error at
 The second-to-last line is a JSON record of each kernel (K1 and its halo
 mode are separate entries): launches on the path that drives it (each
 path runs with every count set to 0 just before it; K1 halo's is the 8M
-timed window), and, under "launches_by_path", on phases 20-22's paths;
+timed window), and, under "launches_by_path", on phases 20-27's paths;
 error against the plain version, its time and the plain
 version's at the stated shape, and the bound: the larger of the operations
 over their peak rates (the rank-1 coefficients, and K5 fast mode's Gram
@@ -195,7 +230,9 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -297,17 +334,22 @@ def phase_device():
 
 
 def phase_build():
+    from particle3d_tpu_torch import native
     from particle3d_tpu_torch.ops import (allpairs_mxu_sweep, allpairs_sweep,
                                           celllist_sweep)
 
+    def build_native():
+        native.load()
+        return ""
+
     t0 = time.perf_counter()
-    libs = {"K1": celllist_sweep, "K2-K4": allpairs_sweep,
-            "K5": allpairs_mxu_sweep}
-    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source
-        logs = dict(zip(libs, pool.map(lambda m: m.build_kernel(),
-                                       libs.values())))
-    log(f"[2] K1, K2-K4 and K5 built and loaded in "
-        f"{time.perf_counter() - t0:.2f} s")
+    libs = {"K1": celllist_sweep.build_kernel,
+            "K2-K4": allpairs_sweep.build_kernel,
+            "K5": allpairs_mxu_sweep.build_kernel, "native": build_native}
+    with ThreadPoolExecutor(len(libs)) as pool:  # one compiler per source
+        logs = dict(zip(libs, pool.map(lambda build: build(), libs.values())))
+    log(f"[2] K1, K2-K4, K5 (nvcc) and the native reference engine (g++) "
+        f"built and loaded in {time.perf_counter() - t0:.2f} s")
     for name, build_log in logs.items():
         for line in _ptxas_summary(build_log):
             log(f"  {name}: {line}")
@@ -523,8 +565,11 @@ def phase_sweeps():
     return main
 
 
-def _step0_forces_check(state, cfg, n_sample=4096):
-    """Dense-path step-0 pair forces against a plain all-pairs sweep."""
+def _step0_forces_check(state, cfg, n_sample=4096, label=""):
+    """Dense-path step-0 pair forces against a plain all-pairs sweep over
+    the particles the layout places (a slot or the sidecar): a geometry
+    that masks rows leaves the others out of both sides of its sweep.
+    With every particle placed this is the sweep over all of them."""
     from particle3d_tpu_torch.engine.step import dense_pair_forces
     from particle3d_tpu_torch.ops import forces as F
     from particle3d_tpu_torch.ops.allpairs import allpairs_forces
@@ -537,12 +582,17 @@ def _step0_forces_check(state, cfg, n_sample=4096):
     f = torch.zeros_like(state.positions)
     occ = ds.pid >= 0
     f[ds.pid[occ]] = f_slot[occ]
+    placed = torch.zeros(state.n, dtype=torch.bool, device=DEVICE)
+    placed[ds.pid[occ]] = True
+    rows = torch.nonzero(placed.cpu())[:, 0]
     gen = torch.Generator().manual_seed(2)
-    idx = torch.randperm(state.n, generator=gen)[:n_sample].to(DEVICE)
+    idx = rows[torch.randperm(rows.numel(), generator=gen)[:n_sample]].to(DEVICE)
     u, v = F.pair_features(state, cfg)
     want = allpairs_forces(state.positions[idx], u[idx], v, cfg, block_i=128,
-                           src_positions=state.positions, src_v=v)
-    compare(f"step-0 forces of {n_sample} particles vs all-pairs", f[idx], want)
+                           src_positions=state.positions, src_v=v,
+                           src_valid=None if bool(placed.all()) else placed)
+    compare(f"{label}step-0 forces of {idx.numel()} particles vs all-pairs "
+            f"({state.n - rows.numel()} unplaced)", f[idx], want)
 
 
 def phase_main_path():
@@ -590,8 +640,8 @@ def phase_ladder():
     if rec["kernel_launches"] < 48:
         raise AssertionError(f"{rec['kernel_launches']} K1 launches in 48 steps")
     # the capacity `run` ends on is what its users' steps cost
-    _window_ms_per_step("particle_life_large", rec["history"][-1][1])
-    return rec
+    cap = rec["history"][-1][1]
+    return cap, _window_ms_per_step("particle_life_large", cap)
 
 
 def _window_ms_per_step(preset, cap=None):
@@ -933,9 +983,13 @@ def _finite(label, state):
             raise AssertionError(f"{label}: non-finite {name}")
 
 
+def _nonzero(launches):
+    return {k: c for k, c in launches.items() if c}
+
+
 def _expect(label, launches, want):
     """Fail unless the path launched exactly the kernels in ``want``."""
-    got = {k: c for k, c in launches.items() if c}
+    got = _nonzero(launches)
     log(f"  {label}: launches {got}")
     if got != want:
         raise AssertionError(f"{label}: launches {got}, expected {want}")
@@ -1930,9 +1984,9 @@ def phase_server(app):
 ADAPTIVE_STEPS = 32   # phase 20: two windows of 16 on slab_2m
 ADAPTIVE_WINDOW = 16
 MASK_STEP = 14        # the step of slab_2m's first masked row (seed 0)
-# K1 halo and K3 launches on this slice's paths, counted from 0 on each
-PATH_LAUNCHES = {"celllist_sweep_halo": {}, "allpairs_rect": {},
-                 "allpairs_pairlist": {}}
+# launches on phases 20-27's paths (K1, K1 halo, K3, K4), each from 0
+PATH_LAUNCHES = {"celllist_sweep": {}, "celllist_sweep_halo": {},
+                 "allpairs_rect": {}, "allpairs_pairlist": {}}
 
 
 def _zero_state(n):
@@ -2304,6 +2358,317 @@ def phase_multicard():
     return rec
 
 
+TUNE_STEPS = 8  # phase 23: the `tune` command's default window
+TUNE_REPS = 3   # utils.tune's timed windows a candidate
+CK_DIR = "build/chip_smoke/checkpoints"
+
+
+def phase_tune():
+    """The geometry tuner on particle_life_large: the 8 default candidates
+    and the preset's hand-tuned (24, 32), twice; K1's launches; every
+    geometry's step-0 forces against all-pairs."""
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.utils.tune import candidate_geometries, tune
+
+    st, cfg, dt = make_scene("particle_life_large", seed=0, device=DEVICE)
+    hand = (cfg.cell_grid, cfg.cell_capacity)
+    cands = candidate_geometries(cfg, st.n) + [hand]
+    want = len(cands) * (1 + TUNE_REPS) * TUNE_STEPS
+    log(f"[23] tune on particle_life_large (N={st.n}, world "
+        f"{float(cfg.world_size):g}): "
+        f"{len(cands)} candidates {cands}, {TUNE_STEPS}-step windows, "
+        f"1 warm + {TUNE_REPS} timed each, run twice")
+    runs = []
+    for run in (1, 2):
+        sync()
+        reset_kernel_launches()
+        res = tune(st, cfg, dt, steps=TUNE_STEPS, candidates=cands,
+                   reps=TUNE_REPS, verbose=None)
+        sync()
+        _expect(f"tune run {run}", kernel_launches(), {"celllist_sweep": want})
+        if run == 1:
+            PATH_LAUNCHES["celllist_sweep"]["tune particle_life_large"] = want
+        log(f"  run {run}, ranked (grid, cap, ms/step, masked):")
+        for r in res:
+            log(f"    {r.nsc:3d} {r.cap:3d} {r.ms_per_step:8.3f} "
+                f"{r.capacity_masked:6d}"
+                + ("   <- hand-tuned" if (r.nsc, r.cap) == hand else ""))
+        runs.append(res)
+    for run, res in enumerate(runs, 1):
+        h = next(r for r in res if (r.nsc, r.cap) == hand)
+        best = res[0]
+        log(f"  run {run}: best ({best.nsc}, {best.cap}) "
+            f"{best.ms_per_step:.3f} ms/step, masked {best.capacity_masked}; "
+            f"hand-tuned {hand} {h.ms_per_step:.3f} ms/step, rank "
+            f"{res.index(h) + 1} of {len(res)}; the tuner "
+            f"{'beat' if best is not h else 'kept'} it")
+    tops = [(r[0].nsc, r[0].cap) for r in runs]
+    log(f"  top candidate {'repeats' if tops[0] == tops[1] else 'moves'} "
+        f"between the runs: {tops[0]} then {tops[1]}")
+    for nsc, cap in cands:
+        _step0_forces_check(st, cfg.replace(cell_grid=nsc, cell_capacity=cap),
+                            label=f"grid {nsc} cap {cap}: ")
+    return runs
+
+
+def phase_autograd():
+    """Gradients through the step on the card: the matrix gradient against
+    the CPU's, examples/learn_matrix at its defaults, and the kernel
+    backends refusing to record a graph."""
+    from particle3d_tpu_torch.config import reference_config
+    from particle3d_tpu_torch.engine.step import step
+    from particle3d_tpu_torch.examples import learn_matrix as LM
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.state import init_scene
+
+    log("[24] autograd: the matrix gradient at tests/test_learn_matrix.py's "
+        "size (N=96, 2 scenes, 2 species, 2 snapshots of 3 steps) on the "
+        "card against the CPU")
+    cfg0 = LM.scene_config(2, 8.0)
+    batch = LM.init_batch(1, 2, 96, cfg0, "cpu")
+    hidden = torch.tensor([[0.7, -0.6], [0.4, 0.5]])
+
+    def grad_on(device):
+        b = tuple(t.to(device) for t in batch)
+        with torch.no_grad():
+            target = LM.snapshots(hidden.to(device), b, cfg0, 1 / 30, 6, 3)
+        m = torch.zeros(2, 2, device=device, requires_grad=True)
+        LM.snapshot_loss(LM.snapshots(m, b, cfg0, 1 / 30, 6, 3),
+                         target).backward()
+        return m.grad.double().cpu()
+
+    g_card, g_cpu = grad_on(DEVICE), grad_on("cpu")
+    rel = float(torch.linalg.vector_norm(g_card - g_cpu)
+                / torch.linalg.vector_norm(g_cpu))
+    log(f"  d loss / d matrix: rel L2 card vs CPU {rel:.3e} (limit 1e-4), "
+        f"|g| {float(torch.linalg.vector_norm(g_cpu)):.3e}")
+    if not rel <= 1e-4:
+        raise AssertionError("the card's matrix gradient is off the CPU's")
+
+    log("  python -m particle3d_tpu_torch.examples.learn_matrix (defaults: "
+        "N=256, 4 scenes, 12 steps, a snapshot every 3, 300 iterations)")
+    sync()
+    t0 = time.perf_counter()
+    mat, losses = LM.main([])
+    sync()
+    wall = time.perf_counter() - t0
+    err = float(torch.max(torch.abs(mat.cpu() - torch.tensor(LM.HIDDEN))))
+    log(f"  loss {losses[0]:.3e} -> {losses[-1]:.3e} "
+        f"({losses[-1] / losses[0]:.4f} of the first; limit 0.05), max "
+        f"|matrix error| {err:.4f}, {wall:.1f} s ({wall / len(losses) * 1e3:.1f}"
+        f" ms an iteration, host clock)")
+    if not losses[-1] < 0.05 * losses[0]:
+        raise AssertionError("learn_matrix did not recover the matrix")
+
+    cases = {"allpairs_pallas": {}, "allpairs_culled": {},
+             "allpairs_mxu": {},
+             "celllist_pallas": dict(cell_grid=4, cell_capacity=32)}
+    for backend, kw in cases.items():
+        cfg = reference_config(world_size=8.0).replace(neighbor=backend, **kw)
+        st = init_scene(torch.Generator().manual_seed(3), 300, cfg, DEVICE)
+        m = torch.tensor(cfg.attraction_matrix, device=DEVICE,
+                         requires_grad=True)
+        reset_kernel_launches()
+        try:
+            step(st, cfg.replace(attraction_matrix=m), 1 / 60)
+        except RuntimeError as e:
+            if "no backward pass" not in str(e):
+                raise
+        else:
+            raise AssertionError(f"{backend} stepped under grad")
+        launched = {k: c for k, c in kernel_launches().items() if c}
+        if launched:
+            raise AssertionError(f"{backend}: launched {launched} under grad")
+        with torch.no_grad():
+            out = step(st, cfg.replace(attraction_matrix=m), 1 / 60)
+        _finite(f"{backend} under no_grad", out)
+        log(f"  {backend}: raises under grad before any launch; under "
+            f"no_grad it steps ({_nonzero(kernel_launches())})")
+    return {"grad_rel_l2": rel, "loss0": losses[0], "loss": losses[-1],
+            "max_err": err, "wall_s": wall}
+
+
+def phase_checkpoints():
+    """utils.orbax_ckpt on the card: a 262k state snapshot, sync and async,
+    and a slab_2m carry at one rank (and at two ranks with two cards),
+    each restored bit-identically."""
+    from particle3d_tpu_torch.engine.step import simulate_dense
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.models.presets import slab_run
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.parallel import make_mesh
+    from particle3d_tpu_torch.parallel.dryrun import carry_resume, spawn_ranks
+    from particle3d_tpu_torch.utils.orbax_ckpt import OrbaxCheckpointer
+
+    shutil.rmtree(CK_DIR, ignore_errors=True)
+    st, cfg, dt = make_scene("particle_life_large", seed=0, device=DEVICE)
+    mid, _ = simulate_dense(st, cfg, dt, 4)
+    fields = ("positions", "velocities", "species", "masses", "accel")
+    size = nbytes(*(getattr(mid, f) for f in fields))
+    log(f"[25] checkpoints: particle_life_large after 4 steps ({size / 1e6:.1f}"
+        f" MB), saved and restored, then 4 more steps")
+    rec = {}
+    for mode in ("sync", "async"):
+        ck = OrbaxCheckpointer(f"{CK_DIR}/{mode}", async_save=mode == "async")
+        sync()
+        t0 = time.perf_counter()
+        ck.save(4, mid, cfg)
+        t1 = time.perf_counter()
+        ck.wait()
+        t2 = time.perf_counter()
+        got, cfg2, step = ck.restore(device=DEVICE)
+        sync()
+        t3 = time.perf_counter()
+        ck.close()
+        if step != 4 or not all(torch.equal(getattr(got, f), getattr(mid, f))
+                                for f in fields):
+            raise AssertionError(f"{mode} snapshot not restored bit-identically")
+        reset_kernel_launches()
+        a, _ = simulate_dense(got, cfg2, dt, 4)
+        b, _ = simulate_dense(mid, cfg, dt, 4)
+        sync()
+        _expect(f"{mode}: 4 steps from the restored and the kept state",
+                kernel_launches(), {"celllist_sweep": 8})
+        if not torch.equal(a.positions, b.positions):
+            raise AssertionError(f"{mode}: resumed run not bit-identical")
+        rec[mode] = {"save_MBps": size / 1e6 / (t2 - t0),
+                     "returned_ms": (t1 - t0) * 1e3,
+                     "restore_MBps": size / 1e6 / (t3 - t2)}
+        log(f"  {mode}: bit-identical restore and resume; save "
+            f"{rec[mode]['save_MBps']:.1f} MB/s (returned after "
+            f"{rec[mode]['returned_ms']:.1f} ms), restore "
+            f"{rec[mode]['restore_MBps']:.1f} MB/s (host clock)")
+    PATH_LAUNCHES["celllist_sweep"]["checkpoint resume 262k"] = 8
+
+    n, cfg, dt, kw = slab_run("slab_2m")
+    log(f"  slab_2m carry (N={n}, grid {kw['nsc']}, cap {kw['cap']}), one "
+        f"rank: 4 steps, save_carry, restore_carry, 4 steps, against 8")
+    sync()
+    reset_kernel_launches()
+    r = carry_resume(make_mesh(1, device=DEVICE), n, cfg, dt, kw, 4,
+                     f"{CK_DIR}/slab_1", seed=0)
+    sync()
+    _expect("carry resume", kernel_launches(), {"celllist_halo": 20})
+    PATH_LAUNCHES["celllist_sweep_halo"]["carry resume slab_2m"] = 20
+    if not (r["identical_to_continuation"] and r["identical_to_uninterrupted"]):
+        raise AssertionError(f"slab_2m carry resume not bit-identical: {r}")
+    rec["slab_1"] = {"MB": r["bytes"] / 1e6,
+                     "save_MBps": r["bytes"] / 1e6 / r["save_s"],
+                     "restore_MBps": r["bytes"] / 1e6 / r["restore_s"]}
+    log(f"  bit-identical to the run continued in memory and to 8 "
+        f"uninterrupted steps; carry {rec['slab_1']['MB']:.1f} MB, save "
+        f"{rec['slab_1']['save_MBps']:.1f} MB/s, restore "
+        f"{rec['slab_1']['restore_MBps']:.1f} MB/s (host clock)")
+    if torch.cuda.device_count() >= 2:
+        rs = spawn_ranks(carry_resume, 2, n, cfg, dt, kw, 4,
+                         os.path.abspath(f"{CK_DIR}/slab_2"), 0, True,
+                         device="cuda")
+        ok = all(x["identical_to_continuation"]
+                 and x["identical_to_uninterrupted"] for x in rs)
+        log(f"  two cards (NCCL, async saves): {rs}")
+        if not ok:
+            raise AssertionError("slab_2m carry resume at D=2 not bit-identical")
+        rec["slab_2"] = rs
+    else:
+        log("  the D = 2 carry resume needs two cards: not run")
+    shutil.rmtree(CK_DIR, ignore_errors=True)
+    return rec
+
+
+def phase_helpers(cap, ladder_ms):
+    """utils.profiling's benchmark_steps and trace, and utils.metrics'
+    kinetic_energy and total_momentum, on the card."""
+    import glob
+
+    from particle3d_tpu_torch.engine.step import simulate_dense
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.utils import (benchmark_steps, kinetic_energy,
+                                            total_momentum, trace)
+
+    st, cfg, dt = make_scene("particle_life_large", seed=0, device=DEVICE)
+    cfg = cfg.replace(cell_capacity=cap)
+    log(f"[26] helpers: benchmark_steps on a {STEPS}-step simulate_dense "
+        f"window at N={N_LARGE}, cap {cap} (phase 5's window)")
+    sec, (out, (mov, mis)) = benchmark_steps(simulate_dense, st, cfg, dt,
+                                             STEPS, warmup=1, iters=5)
+    if int(mis):
+        raise AssertionError("benchmark window masked rows")
+    log(f"  {sec / STEPS * 1e3:.3f} ms/step (host clock, 5 windows) beside "
+        f"phase 5's {ladder_ms:.3f} (CUDA events, 1 window)")
+    tdir = "build/chip_smoke/trace"
+    shutil.rmtree(tdir, ignore_errors=True)
+    reset_kernel_launches()
+    with trace(tdir) as prof:
+        simulate_dense(st, cfg, dt, STEPS)
+        sync()
+    files = glob.glob(f"{tdir}/*.pt.trace.json")
+    text = open(files[0]).read() if len(files) == 1 else ""
+    k1_events = sum(e.count for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and "column_sweep_kernel" in e.key)
+    log(f"  trace: {files} ({len(text) / 1e6:.1f} MB), K1 launches "
+        f"{kernel_launches()['celllist_sweep']}, K1 kernel events "
+        f"{k1_events}")
+    if "column_sweep_kernel" not in text or k1_events != STEPS:
+        raise AssertionError("the trace does not hold K1's kernel")
+    shutil.rmtree(tdir, ignore_errors=True)
+    ke, mom = kinetic_energy(out), total_momentum(out)
+    v = out.velocities.double().cpu()
+    m = out.masses.double().cpu()
+    ke64 = 0.5 * float(torch.sum(m * torch.sum(v * v, dim=-1)))
+    mom64 = torch.sum(m[:, None] * v, dim=0)
+    rel_ke = abs(float(ke) - ke64) / ke64
+    gap_mom = float((mom.double().cpu() - mom64).abs().max())
+    scale = float(torch.sum(m[:, None] * v.abs(), dim=0).max())
+    log(f"  kinetic_energy {float(ke):.6e} vs float64 {ke64:.6e} (rel "
+        f"{rel_ke:.2e}, limit 1e-5); total_momentum max |gap| {gap_mom:.2e} "
+        f"of sum m|v| {scale:.3e} (limit 1e-5 of it)")
+    if not (rel_ke <= 1e-5 and gap_mom <= 1e-5 * scale):
+        raise AssertionError("metrics off their float64 sums")
+    return {"ms_per_step": sec / STEPS * 1e3, "ladder_ms_per_step": ladder_ms}
+
+
+def phase_native():
+    """bench.py's native-parity gate: the reference scene at N=1,000, 120
+    steps, simulate on the card on allpairs (plain) and allpairs_pallas
+    (K3), each against the C++ reference engine."""
+    from particle3d_tpu_torch import native
+    from particle3d_tpu_torch.config import reference_config
+    from particle3d_tpu_torch.engine.step import simulate
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.state import from_numpy
+
+    n, steps = 1000, 120
+    log(f"[27] native parity: reference scene, N={n}, {steps} steps, on the "
+        f"card against native/oracle.cpp (L2 limit 5e-3)")
+    cfg = reference_config()
+    rng = np.random.default_rng(3)
+    pos = rng.uniform(-5.0, 5.0, (n, 3)).astype(np.float32)
+    vel = rng.normal(0, 0.3, (n, 3)).astype(np.float32)
+    species = rng.integers(0, 5, n).astype(np.int32)
+    t0 = time.perf_counter()
+    want, _ = native.native_simulate(pos, vel, species, cfg, 1 / 60, steps)
+    log(f"  native engine: {time.perf_counter() - t0:.2f} s")
+    rec = {}
+    for backend, launches in (("allpairs", {}),
+                              ("allpairs_pallas", {"allpairs_rect": steps})):
+        st = from_numpy(pos, vel, species, device=DEVICE)
+        sync()
+        reset_kernel_launches()
+        out = simulate(st, cfg.replace(neighbor=backend), 1 / 60, steps)
+        sync()
+        _expect(f"simulate on {backend}", kernel_launches(), launches)
+        l2 = float(np.sqrt(np.mean((out.positions.cpu().numpy() - want) ** 2)))
+        log(f"  {backend}: L2 {l2:.3e}")
+        if not l2 < 5e-3:
+            raise AssertionError(f"{backend} trajectory off the native engine")
+        rec[backend] = l2
+    PATH_LAUNCHES["allpairs_rect"][f"native parity N={n}, {steps} steps"] = steps
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -2317,7 +2682,7 @@ def main():
     k1 = {"max_abs_err": max_abs, "ms": ms, "plain_ms": plain_ms, "bound": b,
           "shape": f"N={N_LARGE}, grid 24, cap 32"}
     k1["launches"], _ = phase_main_path()
-    phase_ladder()
+    ladder_cap, ladder_ms = phase_ladder()
     phase_1m()
     k3 = phase_rect()
     k2 = phase_tri()
@@ -2338,6 +2703,11 @@ def main():
     phase_column_slab()
     phase_two_level()
     phase_multicard()
+    phase_tune()
+    phase_autograd()
+    phase_checkpoints()
+    phase_helpers(ladder_cap, ladder_ms)
+    phase_native()
     log(smi)  # the card and its power limit, beside the numbers below
     src = "particle3d_tpu_torch/csrc/allpairs_sweep.cu"
     table = [("celllist_sweep", "particle3d_tpu_torch/csrc/celllist_sweep.cu",

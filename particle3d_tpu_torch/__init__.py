@@ -17,12 +17,20 @@ card; ``serve``, ``replay`` and ``resume`` are their commands, and
 ``utils.checkpoint`` and ``utils.trajio`` read and write the JAX
 package's file formats. ``parallel`` holds the slab domain decomposition
 on ``torch.distributed`` (K1's halo mode) and the ring all-pairs; ``python
--m particle3d_tpu_torch slab`` runs it stay-sharded.
+-m particle3d_tpu_torch slab`` runs it stay-sharded. ``utils`` holds the
+metrics, the profiling helpers, the geometry tuner (``tune``), the npz
+checkpoints and the step-indexed ``OrbaxCheckpointer`` (``torch.save``,
+slab carries written rank by rank); ``native`` binds the C++ reference
+engine; the step differentiates on the ``allpairs`` and ``celllist``
+backends (``examples.learn_matrix``).
 """
 
-from .config import SimConfig, reference_config, from_jax_config
+from .config import (SimConfig, ConfigError, reference_config, from_jax_config,
+                     FORCE_LAWS, INTEGRATORS, BOUNDARIES, NEIGHBOR_BACKENDS,
+                     DEFAULT_ATTRACTION, DEFAULT_COLORS)
 from .state import ParticleState, init_scene, from_numpy, from_jax_state, resize
-from .engine.step import (step, simulate, trajectory, warmup, simulate_dense,
+from .engine.step import (step, simulate, trajectory, warmup, pair_accel,
+                          simulate_dense,
                           simulate_dense_adaptive, simulate_dense_carry,
                           simulate_cadenced, simulate_culled)
 from .models import make_scene, list_presets
@@ -30,10 +38,11 @@ from . import app, render
 from .app import SimulationApp
 
 __all__ = [
-    "SimConfig", "reference_config", "from_jax_config",
+    "SimConfig", "ConfigError", "reference_config", "from_jax_config",
     "ParticleState", "init_scene", "from_numpy", "from_jax_state", "resize",
-    "step", "simulate", "trajectory", "warmup", "simulate_dense",
+    "step", "simulate", "trajectory", "warmup", "pair_accel", "simulate_dense",
     "simulate_dense_adaptive", "simulate_dense_carry", "simulate_cadenced",
     "simulate_culled", "make_scene", "list_presets", "app", "render",
-    "SimulationApp",
+    "SimulationApp", "FORCE_LAWS", "INTEGRATORS", "BOUNDARIES",
+    "NEIGHBOR_BACKENDS", "DEFAULT_ATTRACTION", "DEFAULT_COLORS",
 ]

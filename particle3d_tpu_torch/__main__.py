@@ -9,6 +9,7 @@
     python -m particle3d_tpu_torch resume --checkpoint ck.npz --steps 100
     python -m particle3d_tpu_torch serve --preset particle_life_large --port 8971
     python -m particle3d_tpu_torch presets
+    python -m particle3d_tpu_torch tune --preset particle_life_large --steps 8
     python -m particle3d_tpu_torch slab --config slab_8m --steps 10
     torchrun --nproc_per_node=4 -m particle3d_tpu_torch slab --config slab_8m
 
@@ -21,6 +22,10 @@ trajectory or an npz checkpoint; their progress lines go to stderr.
 ``resume`` continues a checkpoint (either package's), ``replay`` renders a
 trajectory to a GIF, and ``serve`` runs the browser UI
 (``app.server``). Every command that steps or renders takes ``--device``.
+
+``tune`` times candidate (grid, capacity) geometries of a preset's
+``simulate_dense`` windows (``utils.tune``) and prints the JAX package's
+JSON line: ``preset``, ``n``, ``best`` and the ranked ``results``.
 
 ``slab`` runs a ``models.presets.SLAB_RUNS`` configuration on the slab
 decomposition, stay-sharded: one rank by default, or every rank of a
@@ -233,6 +238,19 @@ def _cmd_presets(a):
         print(p)
 
 
+def _cmd_tune(a):
+    from .models import make_scene
+    from .utils.tune import tune
+
+    state, cfg, dt = make_scene(a.preset, seed=a.seed, n=a.n,
+                                device=_device(a.device))
+    results = tune(state, cfg, dt, steps=a.steps, verbose=_say)
+    rec = {"preset": a.preset, "n": state.n, "best": results[0].as_dict(),
+           "results": [r.as_dict() for r in results]}
+    print(json.dumps(rec))
+    return rec
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="particle3d_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -293,6 +311,16 @@ def main(argv=None):
     sl.add_argument("--seed", type=int, default=0)
     sl.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     sl.set_defaults(fn=_cmd_slab)
+
+    t = sub.add_parser("tune", help="time candidate cell geometries of a "
+                                    "preset on the card")
+    t.add_argument("--preset", default="particle_life_large")
+    t.add_argument("--n", type=int, default=None)
+    t.add_argument("--steps", type=int, default=8,
+                   help="steps per timing window")
+    t.add_argument("--seed", type=int, default=0)
+    t.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    t.set_defaults(fn=_cmd_tune)
 
     ls = sub.add_parser("presets", help="list ported scene presets")
     ls.set_defaults(fn=_cmd_presets)

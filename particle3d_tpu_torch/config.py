@@ -1,8 +1,11 @@
 """Simulation configuration (PyTorch port of ``particle3d_tpu.config``).
 
 ``SimConfig`` carries the same fields, defaults and validation as the JAX
-package's config. It holds no tensors: numeric fields are Python or numpy
-scalars and small numpy float32 arrays. Arithmetic on them that must agree
+package's config. Numeric fields are Python or numpy scalars and small
+numpy float32 arrays; ``attraction_matrix`` may also be a ``torch.Tensor``,
+one that requires grad included, to differentiate through the step
+(``validate`` reads only its shape, ``ops.forces.pair_features`` keeps it
+in the graph). Arithmetic on them that must agree
 with the JAX package (which traces every numeric field as a float32 scalar)
 goes through ``f32``, so host-side products such as ``coefficient * dt``
 round exactly as the device would.
@@ -135,10 +138,11 @@ class SimConfig:
             raise ConfigError(
                 f"world_size ({ws}) must be >= 2 * particle_effect_radius "
                 f"({r}) — required for the minimum-image neighbor sweep")
-        am = np.asarray(self.attraction_matrix)
-        if am.shape != (self.id_count, self.id_count):
+        # np.shape reads a tensor's shape without converting it
+        am_shape = tuple(np.shape(self.attraction_matrix))
+        if am_shape != (self.id_count, self.id_count):
             raise ConfigError(
-                f"attraction_matrix shape {am.shape} != (id_count, id_count) "
+                f"attraction_matrix shape {am_shape} != (id_count, id_count) "
                 f"= ({self.id_count}, {self.id_count})")
         if np.asarray(self.colors).shape != (self.id_count, 3):
             raise ConfigError(f"colors shape {np.asarray(self.colors).shape} "

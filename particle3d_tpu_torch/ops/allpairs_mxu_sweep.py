@@ -55,7 +55,8 @@ from .allpairs_sweep import (_REF_MAX_ELEMS, KERNEL_TILE, _check,
                              _kernel_ready, _launch, _pad_rows, _params,
                              _round_to, _splits, _sum3, tri_forces)
 from .compaction import masked_indices
-from .params import LAW_IDS, directional_scale, pack_params, pair_parts, r2_gate
+from .params import (LAW_IDS, directional_scale, pack_params, pair_parts,
+                     r2_gate, refuse_grad)
 
 # the 26 non-zero image offsets in {-1, 0, 1}^3
 _OFFSETS26 = np.array(
@@ -195,6 +196,8 @@ def mxu_sweep(p4, u_p, v_p, r2row, imask, params, law: str, fast: bool,
     for tile (i + k) mod nt in ``out_b[k]`` (zeros where either tile is
     dead, ``live_tiles``); the forces are
     ``allpairs_sweep.tri_forces(out_a, out_b)``."""
+    refuse_grad("K5 (mxu_sweep)", "the allpairs_mxu backend", p4, u_p, v_p,
+                r2row, imask)
     mp, p, nt = _check_mxu(p4, u_p, v_p, r2row, imask, t)
     if p4.device.type == "cpu":
         return mxu_sweep_ref(p4, u_p, v_p, r2row, imask, params, law, fast, t)

@@ -53,7 +53,7 @@ from ..config import SimConfig, f32
 from . import forces as F
 from .compaction import index_add_rows
 from .params import (LAW_IDS, PF_INV_W, PF_W, directional_scale, gated_scale,
-                     pack_params, pair_parts, r2_gate)
+                     pack_params, pair_parts, r2_gate, refuse_grad)
 
 KERNEL_TILE = 128         # K2-K4 tile rows (csrc TILE)
 KERNEL_WIDTHS = (8, 16)   # feature widths the kernels are built for
@@ -170,6 +170,8 @@ def rect_sweep(pos, u, src, v, r2row, params, law: str, wrap: bool, *,
     gated by d2 < r2row[j] (r2row = -1 masks a source). ``splits``: spans
     of the source set, one partial sum each (default: enough blocks for
     four waves)."""
+    refuse_grad("K3 (rect_sweep)", "the allpairs_pallas backend", pos, u, src,
+                v, r2row)
     n, m, p = pos.shape[0], src.shape[0], u.shape[1]
     f = torch.float32
     _check(pos.device, pos=(pos, f, (n, 3)), u=(u, f, (n, p)),
@@ -286,6 +288,9 @@ def tri_sweep(pos_p, u_p, v_p, r2row, imask, params, law: str, wrap: bool,
     i-side sums, and the j-side partial of step k for tile (i + k) mod nt
     in ``out_b[k]``; the forces are ``out_a + out_b.sum(0).T``. ``mask``
     (i32 [nt, ceil(nk / 32)], ``_pack_bits``) selects the steps to run."""
+    refuse_grad("K2 (tri_sweep)",
+                "the allpairs_pallas and allpairs_culled backends",
+                pos_p, u_p, v_p, r2row, imask)
     np_, p, nt = _check_tri(pos_p, u_p, v_p, r2row, imask, t)
     nk = nt // 2 + 1
     nkw = -(-nk // 32)
@@ -369,6 +374,8 @@ def pairlist_sweep(pos_p, u_p, v_p, r2row, imask, wi, wj, params, law: str,
     entry s's j-side partial for tile wj[s]. ``splits``: shares of each
     receiver tile's run, one block and one i-side partial each (default
     ``pairlist_splits``)."""
+    refuse_grad("K4 (pairlist_sweep)", "simulate_culled, the culled rung",
+                pos_p, u_p, v_p, r2row, imask)
     np_, p, nt = _check_tri(pos_p, u_p, v_p, r2row, imask, t)
     nw = wi.shape[0]
     _check(pos_p.device, wi=(wi, torch.int32, (nw,)),

@@ -43,7 +43,8 @@ import torch
 
 from ..config import SimConfig, f32
 from . import forces as F
-from .params import LAW_IDS, PF_W, gated_scale, pack_params, r2_gate
+from .params import (LAW_IDS, PF_W, gated_scale, pack_params, r2_gate,
+                     refuse_grad)
 
 # (dx, dy) neighbour order, as the JAX package's _OFFSETS9 and the kernel
 OFFSETS9 = [(dx, dy) for dx in (-1, 0, 1) for dy in (-1, 0, 1)]
@@ -137,6 +138,8 @@ def column_sweep_forces(pos_d, u_d, post_g, vt_g, r2_g, params, law: str,
 
     ``params`` is the host-side f32[14] vector of ``pack_params``."""
     global KERNEL_LAUNCHES, HALO_LAUNCHES
+    refuse_grad("K1 (column_sweep_forces)", "the celllist_pallas backend",
+                pos_d, u_d, post_g, vt_g, r2_g)
     ncol, p = _check_operands(pos_d, u_d, post_g, vt_g, r2_g, wrap, nsc, cap,
                               halo)
     if pos_d.device.type == "cpu":

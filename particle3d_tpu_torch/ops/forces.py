@@ -50,8 +50,11 @@ def pair_features(state, cfg: SimConfig):
     dev = state.positions.device
     f32t = torch.float32
     if cfg.force_law == "particle_life":
-        a = torch.as_tensor(np.asarray(cfg.attraction_matrix, np.float32),
-                            device=dev)
+        a = cfg.attraction_matrix
+        if isinstance(a, torch.Tensor):  # kept in the graph
+            a = a.to(dev, torch.float32)
+        else:
+            a = torch.as_tensor(np.asarray(a, np.float32), device=dev)
         u = a[state.species]  # U[i] = A[species_i, :] (= onehot @ A)
         v = torch.nn.functional.one_hot(state.species, cfg.id_count).to(f32t)
     elif cfg.force_law == "gravity":

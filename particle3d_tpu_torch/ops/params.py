@@ -136,3 +136,21 @@ def directional_scale(parts, coef):
     rep, base, is_rep = parts
     s = coef * base
     return s if is_rep is None else torch.where(is_rep, rep, s)
+
+
+def refuse_grad(kernel: str, backends: str, *operands) -> None:
+    """Raise when autograd would record through a force kernel: grad mode
+    is on and a float operand requires grad. The kernels have no backward,
+    and the plain versions that CPU tensors take would differentiate where
+    the card could not; the JAX package refuses these backends under
+    ``jax.grad`` too. Called by every kernel wrapper before it picks the
+    plain version or the kernel."""
+    if not torch.is_grad_enabled():
+        return
+    if any(isinstance(t, torch.Tensor) and t.is_floating_point()
+           and t.requires_grad for t in operands):
+        raise RuntimeError(
+            f"{kernel}, the kernel of {backends}, has no backward pass: only "
+            f"the allpairs and celllist backends differentiate, as in the "
+            f"JAX package. Run it under torch.no_grad(), or switch "
+            f"cfg.neighbor to allpairs or celllist to differentiate")

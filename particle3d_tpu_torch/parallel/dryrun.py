@@ -15,7 +15,9 @@ traceback; ranks still alive at the deadline are killed::
 
 ``slab_parity`` runs a ``models.presets.SLAB_RUNS`` configuration on every
 rank of a launch and on one rank, from the same replicated scene, and
-compares the gathered states. On D cards::
+compares the gathered states. ``carry_resume`` saves a stay-sharded carry
+mid-run with ``utils.orbax_ckpt``, restores it rank by rank and holds the
+resumed run to the uninterrupted one, bit for bit. On D cards::
 
     torchrun --nproc_per_node=D -m particle3d_tpu_torch.parallel.dryrun \\
         --slab-parity slab_2m --steps 8
@@ -281,6 +283,58 @@ def slab_parity(mesh, n: int, cfg, dt, kw: dict, steps: int):
             "diag_one_rank": diag1,
             "max_dpos_over_world": _max_gap(got, want, cfg.world_size)
             / float(cfg.world_size)}
+
+
+def carry_resume(mesh, n: int, cfg, dt, kw: dict, steps: int, directory: str,
+                 seed: int = 0, async_save: bool = False):
+    """Checkpoint a stay-sharded carry in the middle of a run and resume it
+    on ``mesh``: ``steps`` slab steps from ``init_sharded_dense(seed)``,
+    ``OrbaxCheckpointer.save_carry`` under ``directory`` (every rank
+    writes its own rows), ``restore_carry`` (each rank reads its own file),
+    ``steps`` more. Returns this rank's record: whether the resumed carry
+    equals, bit for bit on every rank, the carry continued in memory and
+    the carry of 2 * ``steps`` uninterrupted steps, the carry's bytes on
+    this rank, and the seconds of the save (host copy and file writes) and
+    of the restore (read and copy to the device)."""
+    from ..utils.orbax_ckpt import OrbaxCheckpointer
+    from .domain_sharded import init_sharded_dense, sharded_dense_steps
+
+    def sync():
+        if mesh.device.type == "cuda":
+            torch.cuda.synchronize(mesh.device)
+
+    def advance(c, k, config=cfg):
+        return sharded_dense_steps(c, config, dt, k, mesh, n=n, **kw)[0]
+
+    def same_everywhere(a, b):
+        diff = torch.tensor([0 if all(torch.equal(x, y) for x, y in zip(a, b))
+                             else 1], device=mesh.device)
+        return int(mesh.pmax(diff)) == 0
+
+    carry = init_sharded_dense(seed, n, cfg, mesh, nsc=kw["nsc"],
+                               cap=kw["cap"], migcap=kw["migcap"])
+    mid = advance(carry, steps)
+    ck = OrbaxCheckpointer(directory, async_save=async_save)
+    sync()
+    t0 = time.perf_counter()
+    ck.save_carry(steps, mid, cfg, nsc=kw["nsc"], cap=kw["cap"], n=n,
+                  mesh=mesh)
+    ck.wait()
+    t1 = time.perf_counter()
+    got, cfg2, slab, step = ck.restore_carry(mesh)
+    sync()
+    t2 = time.perf_counter()
+    ck.close()
+    if step != steps or slab != {"nsc": kw["nsc"], "cap": kw["cap"], "n": n}:
+        raise AssertionError(f"restored step {step}, slab {slab}")
+    resumed = advance(got, steps, cfg2)
+    return {"rank": mesh.rank, "ranks": mesh.size, "steps": 2 * steps,
+            "identical_to_continuation": same_everywhere(
+                resumed, advance(mid, steps)),
+            "identical_to_uninterrupted": same_everywhere(
+                resumed, advance(carry, 2 * steps)),
+            "bytes": sum(t.numel() * t.element_size() for t in mid[:4]),
+            "save_s": t1 - t0, "restore_s": t2 - t1}
 
 
 def main(argv=None) -> int:

@@ -11,6 +11,7 @@ import dataclasses
 import json
 
 import numpy as np
+import torch
 
 from ..config import SimConfig
 from ..state import ParticleState, from_numpy
@@ -19,11 +20,15 @@ _FORMAT_VERSION = 1
 
 
 def _config_to_jsonable(cfg: SimConfig) -> dict:
+    """The config as JSON values; a tensor field (an attraction matrix
+    being learned) is detached and copied to the host first."""
     out = {}
     for f in dataclasses.fields(cfg):
         v = getattr(cfg, f.name)
         if isinstance(v, (str, bool, int)):
             out[f.name] = v
+        elif isinstance(v, torch.Tensor):
+            out[f.name] = v.detach().cpu().numpy().tolist()
         else:
             out[f.name] = np.asarray(v).tolist()
     return out

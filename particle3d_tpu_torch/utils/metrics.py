@@ -1,6 +1,7 @@
 """Per-state physics diagnostics (port of ``particle3d_tpu.utils.metrics``):
 kinetic energy, momentum, speed statistics and centre of mass, computed on
-the state's device and read back once by ``as_dict``."""
+the state's device and read back once by ``as_dict``. ``kinetic_energy``
+and ``total_momentum`` are device scalars; differentiable like the step."""
 
 from __future__ import annotations
 
@@ -9,6 +10,15 @@ import dataclasses
 import torch
 
 from ..state import ParticleState
+
+
+def kinetic_energy(state: ParticleState) -> torch.Tensor:
+    return 0.5 * torch.sum(state.masses
+                           * torch.sum(state.velocities ** 2, dim=-1))
+
+
+def total_momentum(state: ParticleState) -> torch.Tensor:
+    return torch.sum(state.masses[:, None] * state.velocities, dim=0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -30,12 +40,11 @@ class SimMetrics:
 
 
 def measure_metrics(state: ParticleState) -> SimMetrics:
-    v = state.velocities
     m = state.masses
-    speed = torch.linalg.vector_norm(v, dim=-1)
+    speed = torch.linalg.vector_norm(state.velocities, dim=-1)
     return SimMetrics(
-        kinetic_energy=0.5 * torch.sum(m * torch.sum(v ** 2, dim=-1)),
-        momentum=torch.sum(m[:, None] * v, dim=0),
+        kinetic_energy=kinetic_energy(state),
+        momentum=total_momentum(state),
         max_speed=torch.max(speed),
         mean_speed=torch.mean(speed),
         com=torch.sum(m[:, None] * state.positions, dim=0) / torch.sum(m),

@@ -32,19 +32,25 @@ Writes ``profile.json`` plus each preset's kernel table and Chrome trace to
 ``--out``; prints one JSON line per preset.
 
 ``StepTimer`` is the app's rolling wall-clock timer; its callers
-synchronise the card before the block it times ends.
+synchronise the card before the block it times ends. ``benchmark_steps``
+times calls of a function with the card synchronised around the clock,
+and ``trace`` records a ``torch.profiler`` trace of a block under a
+directory (the JAX package's helpers of the same names).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import dataclasses
 import json
 import os
 import subprocess
 import time
 
 import torch
-from torch.profiler import ProfilerActivity, profile
+from torch.profiler import (ProfilerActivity, profile,
+                            tensorboard_trace_handler)
 
 WINDOW = 16
 
@@ -78,6 +84,60 @@ class StepTimer:
 def _sync(device):
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _cuda_devices(x, found=None) -> set:
+    """The CUDA devices of the tensors in ``x``, found by walking tuples,
+    lists, dicts and dataclasses."""
+    found = set() if found is None else found
+    if isinstance(x, torch.Tensor):
+        if x.is_cuda:
+            found.add(x.device)
+    elif isinstance(x, (tuple, list)):
+        for y in x:
+            _cuda_devices(y, found)
+    elif isinstance(x, dict):
+        for y in x.values():
+            _cuda_devices(y, found)
+    elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+        for f in dataclasses.fields(x):
+            _cuda_devices(getattr(x, f.name), found)
+    return found
+
+
+def _sync_result(out):
+    for dev in _cuda_devices(out):
+        torch.cuda.synchronize(dev)
+
+
+def benchmark_steps(fn, *args, warmup: int = 1, iters: int = 5):
+    """Time ``fn(*args)``: ``warmup`` untimed calls, then ``iters`` calls
+    between two synchronisations of the devices of the tensors ``fn``
+    returns. Returns (seconds_per_call, last_result)."""
+    out = None
+    for _ in range(warmup):
+        out = fn(*args)
+    _sync_result(out)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        out = fn(*args)
+    _sync_result(out)
+    return (time.perf_counter() - t0) / iters, out
+
+
+@contextlib.contextmanager
+def trace(log_dir: str):
+    """Record a ``torch.profiler`` trace of the block (CPU activity, and
+    CUDA kernels when a card is present) and write it under ``log_dir`` in
+    the TensorBoard plugin's format (``*.pt.trace.json``, a Chrome trace).
+    Yields the profiler, whose ``key_averages()`` hold the same events."""
+    acts = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=acts,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
 
 
 def _wall_s(fn, device):

@@ -107,6 +107,16 @@ def test_grid_mode_matches_plain(k1, walled, cap, n, w, nsc):
     _check(k1, _grid_ops(_scene(n, w, 2), cfg, nsc, cap), cfg, nsc, cap)
 
 
+@pytest.mark.parametrize("cap", [6, 7])
+def test_tuner_capacities_match_plain(k1, cap):
+    """The tuner's smallest capacities (``utils.tune``'s candidates for
+    particle_life_large: grid 40, mean occupancy 4.1, caps 6 to 17; the
+    rest are held on the card) on a 10^3 grid at the same density, so
+    that many supercells overflow their capacity."""
+    cfg = reference_config(world_size=10.0)
+    _check(k1, _grid_ops(_scene(4096, 10.0, 5), cfg, 10, cap), cfg, 10, cap)
+
+
 def test_grid_split_for_a_short_wave_matches_plain(k1_lib):
     """On 8 SMs (56 resident blocks) a 9^3 grid's 81 columns of one z-block
     each would fill under 1.5 waves, so the launcher splits each column into

@@ -59,7 +59,11 @@ def test_every_module_imports_with_jax_blocked():
             "particle3d_tpu_torch.render.camera",
             "particle3d_tpu_torch.render.splat",
             "particle3d_tpu_torch.utils.checkpoint",
-            "particle3d_tpu_torch.utils.trajio"} <= set(names)
+            "particle3d_tpu_torch.utils.trajio",
+            "particle3d_tpu_torch.utils.tune",
+            "particle3d_tpu_torch.utils.orbax_ckpt",
+            "particle3d_tpu_torch.native",
+            "particle3d_tpu_torch.examples.learn_matrix"} <= set(names)
 
 
 def test_from_jax_config_round_trip():
@@ -230,3 +234,59 @@ def test_preset_matches_jax_preset(name):
                         -1).reshape(-1, 3)
         for pos in (st.positions.numpy(), np.asarray(jst.positions)):
             np.testing.assert_allclose(pos, grid, rtol=0, atol=5 * 0.02)
+
+
+def test_package_exports_what_the_jax_package_exports():
+    import particle3d_tpu
+    import particle3d_tpu.utils
+    import particle3d_tpu_torch.utils
+
+    assert set(particle3d_tpu.__all__) <= set(P.__all__)
+    assert (set(particle3d_tpu.utils.__all__)
+            <= set(particle3d_tpu_torch.utils.__all__))
+    for name in P.__all__:
+        getattr(P, name)
+    for name in particle3d_tpu_torch.utils.__all__:
+        getattr(particle3d_tpu_torch.utils, name)
+
+
+def test_kinetic_energy_and_momentum_match_jax():
+    """utils.metrics' two diagnostics against the JAX package's, rtol 1e-6,
+    on a state with random velocities and masses."""
+    from particle3d_tpu.utils.metrics import (kinetic_energy as jax_ke,
+                                              total_momentum as jax_mom)
+    from particle3d_tpu_torch.utils import kinetic_energy, total_momentum
+
+    cfg = reference_config()
+    jst = jax_init_scene(jax.random.PRNGKey(4), 1000, cfg)
+    rng = np.random.default_rng(4)
+    jst = jst.replace(
+        velocities=jax.numpy.asarray(rng.normal(0, 0.5, (1000, 3)),
+                                     jax.numpy.float32),
+        masses=jax.numpy.asarray(rng.uniform(0.5, 2.0, 1000),
+                                 jax.numpy.float32))
+    st = P.from_jax_state(jst, device="cpu")
+    np.testing.assert_allclose(float(kinetic_energy(st)), float(jax_ke(jst)),
+                               rtol=1e-6)
+    np.testing.assert_allclose(total_momentum(st).numpy(),
+                               np.asarray(jax_mom(jst)), rtol=1e-6, atol=1e-6)
+
+
+def test_benchmark_steps_and_trace(tmp_path):
+    from particle3d_tpu_torch.utils import benchmark_steps, trace
+
+    st, cfg, dt = P.make_scene("reference", n=200, device="cpu")
+    calls = []
+
+    def run(s, k):
+        calls.append(k)
+        return P.simulate(s, cfg, dt, k), (s.positions, [s.velocities])
+
+    sec, (out, _) = benchmark_steps(run, st, 2, warmup=2, iters=3)
+    assert sec > 0 and calls == [2] * 5
+    assert torch.equal(out.positions, P.simulate(st, cfg, dt, 2).positions)
+    with trace(str(tmp_path / "tr")) as prof:
+        P.simulate(st, cfg, dt, 1)
+    files = list((tmp_path / "tr").glob("*.pt.trace.json"))
+    assert len(files) == 1 and files[0].stat().st_size > 0
+    assert any(e.key.startswith("aten::") for e in prof.key_averages())
