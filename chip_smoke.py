@@ -159,8 +159,17 @@ ghost-image sweep K5 (csrc/allpairs_mxu.cu), and the C++ reference engine
      cards) on NCCL (among its steps the 2-level ring on a 2 x D/2 mesh,
      point-to-point on subgroups), and `torchrun -m particle3d_tpu_torch.parallel.dryrun
      --slab-parity slab_2m` at D = 2 (and 4): the gathered state against
-     D = 1 (max |dpos| / world <= 1e-5, masked, limbo and lost 0); with
-     one card, a line saying it was not run;
+     D = 1 (max |dpos| / world <= 1e-5, masked, limbo and lost 0); the
+     scale-out launcher (examples/scaleout.py) at full N: `--ring-parity
+     ring2m` at D = 2 and 4 and `--ring-parity ring2level` on a 2 x 2 mesh,
+     one step from one scene against ring2m on one card (max |dpos| /
+     world and max |dvel| / max |vel| <= 1e-5), and, with four cards,
+     `torchrun -m particle3d_tpu_torch.examples.scaleout slab16m --full
+     --checkpoint DIR` twice at D = 4 (a fresh run saved, then resumed and
+     saved; masked, limbo and lost 0), then the step of the second save
+     saved again by two ranks into DIR (parallel.dryrun.carry_resume at
+     N=16,777,216) and restored at D = 2, bit-identical to the run
+     continued in memory; with one card, a line saying it was not run;
  23. the geometry tuner (utils.tune, the `tune` command's function) on
      particle_life_large: its 8 default candidates (grid 40 at capacities
      6, 7, 9, 11, 13, 17 and grid 39 at 6, 7) and the preset's hand-tuned
@@ -195,7 +204,28 @@ ghost-image sweep K5 (csrc/allpairs_mxu.cu), and the C++ reference engine
  27. native parity (bench.py's gate): the reference scene at N=1,000, 120
      steps, simulate on the card on allpairs (plain torch) and on
      allpairs_pallas (K3, 120 launches), each against the C++ reference
-     engine native/oracle.cpp (built with g++ in phase 2), L2 < 5e-3.
+     engine native/oracle.cpp (built with g++ in phase 2), L2 < 5e-3;
+ 28. ring2m, BASELINE config 4 (examples/scaleout.py): gravity at
+     N=2,097,152 (world 40, radius 20, leapfrog): K3 at 2,097,152^2, one
+     launch timed, held against its plain version on 2,048 sampled
+     receivers against all sources, and both against a float64 sum on them
+     (K3's relative L2 at most twice the plain version's); the launcher's
+     run_ring on one rank, 1 untimed + 2 timed steps (one K3 launch a
+     step), ms/step and pair interactions a second; the D = 1 ring at
+     N=262,144 against simulate on the K2 path, 2 steps (max |dpos| /
+     scale < 5e-5, max |dvel| / max |vel| <= 1e-4);
+ 29. slab16m, BASELINE config 5's direction (examples/scaleout.py): particle
+     life at N=16,777,216, grid 64, cap 161 (42.2M slots), one rank: the
+     launcher's run_slab with --checkpoint, 1 untimed + 4 timed steps
+     (masked, limbo and lost 0, one K1 halo launch a step), ms/step, peak
+     device memory, the carry's bytes and save MB/s; K1 halo timed on the
+     whole layout and held against its plain version on receiver planes
+     0, 32 and 63; the saved carry restored bit-identically into a fresh
+     carry, 2 steps from it bit-identical to 2 continued in memory,
+     restore MB/s; the directory deleted;
+ 30. examples/render_demo.py on particle_life_large: 16 warm steps, 8
+     frames of 4 steps at 480x360 into a GIF under build/chip_smoke/ (8
+     frames), one K1 launch a step, ms a frame.
 
 Tolerance for every force comparison: relative L2 error <= 1e-5 and max
 abs error <= 1e-4 * max|F|. Between a kernel and its plain version only
@@ -213,7 +243,7 @@ one pair at distance 0.012 puts the formulation's own max abs error at
 The second-to-last line is a JSON record of each kernel (K1 and its halo
 mode are separate entries): launches on the path that drives it (each
 path runs with every count set to 0 just before it; K1 halo's is the 8M
-timed window), and, under "launches_by_path", on phases 20-27's paths;
+timed window), and, under "launches_by_path", on phases 20-30's paths;
 error against the plain version, its time and the plain
 version's at the stated shape, and the bound: the larger of the operations
 over their peak rates (the rank-1 coefficients, and K5 fast mode's Gram
@@ -1984,7 +2014,7 @@ def phase_server(app):
 ADAPTIVE_STEPS = 32   # phase 20: two windows of 16 on slab_2m
 ADAPTIVE_WINDOW = 16
 MASK_STEP = 14        # the step of slab_2m's first masked row (seed 0)
-# launches on phases 20-27's paths (K1, K1 halo, K3, K4), each from 0
+# launches on phases 20-30's paths (K1, K1 halo, K3, K4), each from 0
 PATH_LAUNCHES = {"celllist_sweep": {}, "celllist_sweep_halo": {},
                  "allpairs_rect": {}, "allpairs_pairlist": {}}
 
@@ -2330,11 +2360,12 @@ def phase_multicard():
 
     count = torch.cuda.device_count()
     if count < 2:
-        log(f"[22b] multi-card check not run: {count} card(s) (dryrun_multichip "
-            f"and the D >= 2 slab_2m comparison need two or more)")
+        log(f"[22b] multi-card check not run: {count} card(s) (dryrun_multichip, "
+            f"the D >= 2 slab_2m comparison and the scale-out launcher's "
+            f"ring2m, ring2level and slab16m need two or more)")
         return None
-    log(f"[22b] {count} cards: dryrun_multichip on NCCL, and slab_2m "
-        f"gathered at D ranks against one (torchrun)")
+    log(f"[22b] {count} cards: dryrun_multichip on NCCL, slab_2m gathered "
+        f"at D ranks against one (torchrun), and the scale-out launcher")
     rec = {}
     for d in (2, 4):
         if d > count:
@@ -2343,18 +2374,93 @@ def phase_multicard():
         for line in dryrun_multichip(d):
             log(f"  {line}")
         log(f"  dryrun_multichip({d}): ok in {time.perf_counter() - t0:.1f} s")
-        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
-               f"--nproc_per_node={d}", "-m",
-               "particle3d_tpu_torch.parallel.dryrun", "--slab-parity",
-               "slab_2m", "--steps", "8"]
-        rc, out, err = _run_bounded(cmd, 600)
-        lines = [ln for ln in out.splitlines() if ln.startswith("{")]
-        res = json.loads(lines[-1]) if lines else None
+        rc, res, _, err = _torchrun(d, [
+            "particle3d_tpu_torch.parallel.dryrun", "--slab-parity",
+            "slab_2m", "--steps", "8", "--device", DEVICE])
         log(f"  torchrun D={d} slab_2m against D=1: rc {rc}, {res}")
         if rc != 0 or res is None or not res["ok"]:
             raise AssertionError(f"slab_2m at D={d} off D=1 (rc {rc}):\n"
                                  f"{err[-3000:]}")
         rec[d] = res
+    rec["scaleout"] = _multicard_scaleout(count)
+    return rec
+
+
+def _torchrun(d, module_args, timeout_s=600):
+    """``module_args`` under torchrun on ``d`` ranks: (rc, the last JSON
+    line of rank 0's output or None, stdout, stderr)."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           f"--nproc_per_node={d}", "-m", *module_args]
+    rc, out, err = _run_bounded(cmd, timeout_s)
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    return rc, json.loads(lines[-1]) if lines else None, out, err
+
+
+def _multicard_scaleout(count):
+    """The scale-out launcher on several cards: ring2m at D = 2 and 4 and
+    ring2level on a 2 x 2 mesh against ring2m on one card from one scene
+    (full N); slab16m at D = 4 through its checkpoint (a fresh run saved,
+    then resumed and saved again), and the same step re-saved at D = 2
+    into that directory and restored at D = 2."""
+    from particle3d_tpu_torch.examples import scaleout as SO
+    from particle3d_tpu_torch.parallel.dryrun import carry_resume, spawn_ranks
+
+    n = SO.ring_n(1, full=True)
+    rec = {}
+    for mode, d in (("ring2m", 2), ("ring2m", 4), ("ring2level", 4)):
+        if d > count:
+            continue
+        rc, res, _, err = _torchrun(d, [
+            "particle3d_tpu_torch.parallel.dryrun", "--ring-parity", mode,
+            "--particles", str(n), "--steps", str(MULTI_RING_STEPS), "--device",
+            DEVICE])
+        log(f"  torchrun D={d} {mode} N={n} against ring2m on one card: rc "
+            f"{rc}, ms/step {res['record']['ms_per_step']:.3f} (one card "
+            f"{res['record_one_rank']['ms_per_step']:.3f}), max |dpos| / "
+            f"world {res['max_dpos_over_world']:.3e}, max |dvel| / max |vel| "
+            f"{res['max_dvel_over_max_vel']:.3e}" if res else
+            f"  torchrun D={d} {mode}: rc {rc}, no record")
+        if rc != 0 or res is None or not res["ok"]:
+            raise AssertionError(f"{mode} at D={d} off one card (rc {rc}):\n"
+                                 f"{err[-3000:]}")
+        rec[f"{mode}_{d}"] = res
+    if count < 4:
+        log("  slab16m at D = 4 needs four cards: not run")
+        return rec
+    ck_dir = os.path.abspath(f"{SLAB16_CK}_multi")
+    shutil.rmtree(ck_dir, ignore_errors=True)
+    nsc, n16, cap = SO.slab_geometry(4, full=True)
+    args = ["particle3d_tpu_torch.examples.scaleout", "slab16m",
+            *MULTI_SLAB_SIZE, "--steps", str(MULTI_SLAB_STEPS), "--checkpoint",
+            ck_dir, "--device", DEVICE]
+    for run in ("fresh", "resumed"):
+        rc, res, out, err = _torchrun(4, args)
+        log(f"  torchrun D=4 slab16m --full --checkpoint ({run}): rc {rc}, "
+            f"{res}")
+        resumed = "resumed sharded carry at step" in out
+        if (rc != 0 or res is None or resumed != (run == "resumed")
+                or res["masked"] or res["limbo"] or res["lost"]):
+            raise AssertionError(f"slab16m at D=4 ({run}), rc {rc}:\n"
+                                 f"{err[-3000:]}")
+        rec[f"slab16m_4_{run}"] = res
+    step = 2 * MULTI_SLAB_STEPS
+    state_dir = os.path.join(ck_dir, f"{step:010d}", "state")
+    before = sorted(os.listdir(state_dir))
+    # the same step saved again by two ranks into the same directory
+    # (carry_resume: init, `step` steps, save_carry, restore_carry, resume)
+    rs = spawn_ranks(carry_resume, 2, n16, SO.slab_config(nsc, cap),
+                     SO.SLAB_DT, {"nsc": nsc, "cap": cap, "migcap": None},
+                     step, ck_dir, 0, False, device=DEVICE)
+    after = sorted(os.listdir(state_dir))
+    log(f"  step {step} re-saved at D = 2 over the D = 4 carry: files "
+        f"{before} -> {after}; restored at D = 2: "
+        f"{[(r['identical_to_continuation'], r['identical_to_uninterrupted']) for r in rs]}")
+    if (after != ["rank_00000.pt", "rank_00001.pt"]
+            or not all(r["identical_to_continuation"]
+                       and r["identical_to_uninterrupted"] for r in rs)):
+        raise AssertionError("slab16m re-saved at D=2 not restored")
+    rec["slab16m_resave_2"] = rs
+    shutil.rmtree(ck_dir, ignore_errors=True)
     return rec
 
 
@@ -2669,6 +2775,258 @@ def phase_native():
     return rec
 
 
+RING_SAMPLE = 2048   # phase 28: receivers held against all 2M sources
+RING_TIMED = 2       # phase 28: timed ring2m steps at full N, after one
+RING_CHECK_N = 262_144
+SLAB16_TIMED = 4     # phase 29: timed slab16m steps, after one
+SLAB16_CK = "build/chip_smoke/slab16m"
+DEMO_GIF = "build/chip_smoke/demo_262k.gif"
+DEMO_FRAMES = 8      # phase 30: frames of 4 steps after DEMO_WARM steps
+DEMO_WARM = 16
+MULTI_RING_STEPS = 1  # phase 22b: timed steps of the ring parity at full N
+MULTI_SLAB_STEPS = 2  # phase 22b: timed steps of each slab16m launch
+MULTI_SLAB_SIZE = ["--full"]  # phase 22b: slab16m's size (N=16,777,216)
+
+
+def _quiet(_msg):
+    pass
+
+
+def phase_ring2m():
+    """BASELINE config 4 on one card: K3 at 2,097,152^2 under gravity
+    against its plain version and a float64 sum, the launcher's ring2m at
+    full N, and the D = 1 ring at 262k against the K2 path."""
+    from particle3d_tpu_torch.engine.step import simulate
+    from particle3d_tpu_torch.examples import scaleout as SO
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.ops import forces as F
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.parallel import make_mesh
+    from particle3d_tpu_torch.state import init_scene
+
+    cfg = SO.ring_config()
+    n = SO.ring_n(1, full=True)
+    log(f"[28] ring2m (BASELINE config 4) on one card: gravity, N={n}, world "
+        f"{float(cfg.world_size):g}, radius {float(cfg.particle_effect_radius):g}"
+        f", softening {float(cfg.gravity_softening):g}, leapfrog, dt "
+        f"{SO.RING_DT:g}")
+    st = init_scene(torch.Generator().manual_seed(0), n, cfg, DEVICE)
+    u, v = F.pair_features(st, cfg)
+    ops = A.rect_operands(st.positions, u, st.positions, v, cfg)
+    k_ms, got = timed_ms(lambda: A.rect_sweep(*ops), 1, warm=False)
+    b = bound(float(n) * n, ops_one_sided(u.shape[1], True, "gravity"),
+              nbytes(*ops[:5], got))
+    log(f"  K3 at {n} x {n}: {k_ms:.3f} ms (CUDA events, one launch), "
+        f"{bound_text(b)}")
+    idx = _sample(n, RING_SAMPLE, 28)
+    sub = (ops[0][idx], ops[1][idx], *ops[2:])
+    plain_ms, want = timed_ms(lambda: A.rect_sweep_ref(*sub), 1, warm=False)
+    err = compare(f"K3 against its plain version, {RING_SAMPLE} receivers x "
+                  f"{n} sources", got[idx], want)
+    want64 = A.rect_sweep_ref(*(t.double() for t in sub[:5]), *sub[5:])
+
+    def off64(f):
+        f = f.double()
+        return ((torch.linalg.vector_norm(f - want64)
+                 / torch.linalg.vector_norm(want64)).item(),
+                (f - want64).abs().max().item())
+
+    (k_rel, k_abs), (p_rel, p_abs) = off64(got[idx]), off64(want)
+    log(f"  against a float64 sum on the same receivers: K3 rel L2 "
+        f"{k_rel:.3e}, max abs {k_abs:.3e}; plain float32 rel L2 {p_rel:.3e},"
+        f" max abs {p_abs:.3e} (max|F| {want64.abs().max().item():.3e}); "
+        f"limit 2x the plain version's rel L2")
+    if not k_rel <= 2 * p_rel:
+        raise AssertionError("K3 at 2M gravity further from float64 than "
+                             "twice the plain version")
+    log(f"  plain version: {plain_ms:.3f} ms on {RING_SAMPLE} receivers "
+        f"(CUDA events, one call)")
+    del ops, got, sub, want, want64
+    torch.cuda.empty_cache()
+
+    mesh = make_mesh(1, device=DEVICE)
+    sync()
+    reset_kernel_launches()
+    rec, out = SO.run_ring("ring2m", st, mesh, RING_TIMED,
+                           say=lambda m: log(f"  {m}"))
+    sync()
+    counts = kernel_launches()
+    _expect("ring2m, 1 untimed + 2 timed steps", counts,
+            {"allpairs_rect": RING_TIMED + 1})
+    if rec["kernel_launches_by_kernel"]["allpairs_rect"] != RING_TIMED:
+        raise AssertionError(f"ring2m: {rec['kernel_launches_by_kernel']} in "
+                             f"{RING_TIMED} timed steps")
+    PATH_LAUNCHES["allpairs_rect"][f"ring2m N={n}, 1 + {RING_TIMED} steps"] = \
+        counts["allpairs_rect"]
+    _finite("ring2m", out)
+    log(f"  ring2m: {rec['ms_per_step']:.3f} ms/step, "
+        f"{rec['pair_interactions_per_s']:.4e} pair interactions/s (host "
+        f"clock after a sync, {RING_TIMED} steps)")
+    del st, out
+    torch.cuda.empty_cache()
+
+    st = init_scene(torch.Generator().manual_seed(1), RING_CHECK_N, cfg,
+                    DEVICE)
+    _, ring = SO.run_ring("ring2m", st, mesh, 2, say=_quiet)
+    reset_kernel_launches()
+    ref = simulate(st, cfg, SO.RING_DT, 2)
+    sync()
+    _expect(f"simulate on allpairs_pallas at N={RING_CHECK_N}, 2 steps",
+            kernel_launches(),
+            {"allpairs_tri": 2})
+    rel = _rel_pos(ring, ref)
+    dvel = ((ring.velocities - ref.velocities).abs().max()
+            / ref.velocities.abs().max()).item()
+    log(f"  D = 1 ring (K3) against simulate (K2) at N={RING_CHECK_N}, 2 "
+        f"steps: max |dpos| / scale {rel:.3e} (limit 5e-5), max |dvel| / "
+        f"max |vel| {dvel:.3e} (limit 1e-4; from rest the leapfrog's first "
+        f"step moves nothing, the velocities carry the forces)")
+    compare("cached acceleration, ring against simulate", ring.accel,
+            ref.accel, gate=False)
+    if not (rel < 5e-5 and dvel <= 1e-4):
+        raise AssertionError("ring2m at 262k off the K2 path")
+    return {"k3_ms": k_ms, "plain_ms": plain_ms, "bound": b,
+            "max_abs_err": err, "k3_rel64": k_rel, "plain_rel64": p_rel,
+            "ms_per_step": rec["ms_per_step"],
+            "pairs_per_s": rec["pair_interactions_per_s"]}
+
+
+def phase_slab16m():
+    """slab16m (BASELINE config 5 direction) on one card at full N: the
+    launcher's run, K1 halo against its plain version on three of its
+    receiver planes, and the launcher's carry restored and continued."""
+    from particle3d_tpu_torch.examples import scaleout as SO
+    from particle3d_tpu_torch.ops import celllist_sweep as S
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.ops.params import pack_params
+    from particle3d_tpu_torch.parallel import make_mesh, sharded_dense_steps
+    from particle3d_tpu_torch.parallel import domain_sharded as DS
+    from particle3d_tpu_torch.utils.orbax_ckpt import OrbaxCheckpointer
+
+    nsc, n, cap = SO.slab_geometry(1, full=True)
+    log(f"[29] slab16m on one card: N={n}, grid {nsc}, cap {cap} "
+        f"({nsc ** 3 * cap} slots), 1 untimed + {SLAB16_TIMED} timed steps, "
+        f"--checkpoint {SLAB16_CK}")
+    shutil.rmtree(SLAB16_CK, ignore_errors=True)
+    mesh = make_mesh(1, device=DEVICE)
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    reset_kernel_launches()
+    t0 = time.perf_counter()
+    rec, carry = SO.run_slab(mesh, n, nsc, cap, SLAB16_TIMED,
+                             checkpoint=SLAB16_CK, say=lambda m: log(f"  {m}"))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    halo = kernel_launches()["celllist_halo"]
+    PATH_LAUNCHES["celllist_sweep_halo"][
+        f"slab16m N={n}, 1 + {SLAB16_TIMED} steps"] = halo
+    carry_bytes = nbytes(*carry[:4])
+    disk = sum(os.path.getsize(os.path.join(dp, f))
+               for dp, _, fs in os.walk(SLAB16_CK) for f in fs)
+    log(f"  {rec['ms_per_step']:.3f} ms/step; movers {rec['movers']}, masked "
+        f"{rec['masked']}, limbo {rec['limbo']}, lost {rec['lost']} (carry "
+        f"{int(carry[4])}); K1 halo launches {halo}; peak device memory "
+        f"{peak / 1e9:.3f} GB; carry {carry_bytes / 1e9:.3f} GB, "
+        f"{disk / 1e9:.3f} GB on disk, saved in {rec['save_s']:.2f} s "
+        f"({carry_bytes / 1e6 / rec['save_s']:.1f} MB/s, host copy and "
+        f"writes); {wall:.1f} s in all (init included)")
+    if rec["masked"] or rec["limbo"] or rec["lost"] or int(carry[4]):
+        raise AssertionError(f"slab16m not exact: {rec}")
+    if halo != SLAB16_TIMED + 1 or \
+            rec["kernel_launches_by_kernel"]["celllist_halo"] != SLAB16_TIMED:
+        raise AssertionError(f"slab16m: K1 halo launched {halo} times")
+    occ = carry[1] >= 0
+    if not bool(torch.isfinite(carry[0][occ][:, :6]).all()):
+        raise AssertionError("slab16m: non-finite rows")
+
+    cfg = SO.slab_config(nsc, cap)
+    ops, r2c, pack, pos_d, u_d, g = _slab_operands(carry, cfg)
+    args = (pack_params(cfg), cfg.force_law, True, nsc, cap)
+    k_ms, got = timed_ms(lambda: S.column_sweep_forces(*ops, *args, halo=True),
+                         3)
+    b = bound(k1_pairs(r2c.reshape(-1), nsc, cap),
+              ops_one_sided(int(cfg.id_count), False), nbytes(*ops, got))
+    log(f"  K1 halo at {ops[0].shape[0]} receiver columns: {k_ms:.3f} ms per "
+        f"launch (CUDA events, mean of 3), {bound_text(b)}")
+    fl, fr = DS.fix_halos(pack[-nsc:], pack[:nsc], cfg, g.d, 0)
+    ext = torch.cat([fl, pack, fr])
+    del ops
+    plain_ms = 0.0
+    for p in (0, nsc // 2, nsc - 1):  # both seams and the middle
+        cols = slice(p * nsc, (p + 1) * nsc)
+        pops = DS.halo_call_operands(pos_d[cols], u_d[cols],
+                                     ext[p * nsc:(p + 3) * nsc], cfg, cap)
+        ms, want = timed_ms(
+            lambda: S.column_sweep_forces_ref(*pops, *args, halo=True), 1,
+            warm=False)
+        plain_ms += ms
+        live = r2c[cols] > 0
+        pick = lambda f: f.permute(0, 2, 1)[live]  # noqa: E731
+        compare(f"K1 halo, receiver plane {p} ({nsc} columns)",
+                pick(got[cols]), pick(want))
+        _dead_rows_zero(f"K1 halo, plane {p}", got[cols], live)
+    log(f"  plain version: {plain_ms:.3f} ms on 3 planes of {nsc} "
+        f"(CUDA events)")
+    del got, pack, pos_d, u_d, ext, want
+    torch.cuda.empty_cache()
+
+    ck = OrbaxCheckpointer(SLAB16_CK)
+    sync()
+    t0 = time.perf_counter()
+    got, cfg2, slab, step = ck.restore_carry(mesh)
+    sync()
+    restore_s = time.perf_counter() - t0
+    ck.close()
+    if step != SLAB16_TIMED or slab != {"nsc": nsc, "cap": cap, "n": n}:
+        raise AssertionError(f"restored step {step}, slab {slab}")
+    _bit_identical("slab16m carry restored from its file", got, carry)
+    kw = dict(nsc=nsc, cap=cap, n=n)
+    resumed, _ = sharded_dense_steps(got, cfg2, SO.SLAB_DT, 2, mesh, **kw)
+    del got
+    kept, _ = sharded_dense_steps(carry, cfg, SO.SLAB_DT, 2, mesh, **kw)
+    _bit_identical("2 steps from the restored carry against 2 continued in "
+                   "memory", resumed, kept)
+    log(f"  restore {restore_s:.2f} s ({carry_bytes / 1e6 / restore_s:.1f} "
+        f"MB/s, read and copy to the card, host clock)")
+    shutil.rmtree(SLAB16_CK, ignore_errors=True)
+    del carry, resumed, kept
+    torch.cuda.empty_cache()
+    return {"ms_per_step": rec["ms_per_step"], "peak": peak,
+            "k1h_ms": k_ms, "bound": b,
+            "save_MBps": carry_bytes / 1e6 / rec["save_s"],
+            "restore_MBps": carry_bytes / 1e6 / restore_s}
+
+
+def phase_render_demo():
+    """examples/render_demo on particle_life_large: a short warm-up and
+    DEMO_FRAMES frames at 480 x 360 into a GIF, one K1 launch a step."""
+    from PIL import Image
+
+    from particle3d_tpu_torch.examples import render_demo as RD
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    log(f"[30] render_demo on particle_life_large: {DEMO_WARM} warm steps, "
+        f"{DEMO_FRAMES} frames of 4 steps at 480x360 -> {DEMO_GIF}")
+    sync()
+    reset_kernel_launches()
+    rec = RD.render_demo("particle_life_large", DEMO_GIF, frames=DEMO_FRAMES,
+                         steps_per_frame=4, warm_steps=DEMO_WARM, width=480,
+                         height=360, device=DEVICE,
+                         say=lambda m: log(f"  {m}"))
+    _expect("render_demo", kernel_launches(), {"celllist_sweep": rec["steps"]})
+    PATH_LAUNCHES["celllist_sweep"][
+        f"render_demo 262k, {DEMO_WARM} + {DEMO_FRAMES} x 4 steps"] = \
+        rec["steps"]
+    with Image.open(DEMO_GIF) as im:
+        frames, size = im.n_frames, im.size
+    log(f"  {rec['ms_per_frame']:.3f} ms a frame (4 steps and a render, host "
+        f"clock); masked at most {rec['max_masked']} a window (frozen rows, "
+        f"as the JAX script's demo allows); GIF {frames} frames {size}")
+    if frames != DEMO_FRAMES or size != (480, 360):
+        raise AssertionError(f"render_demo GIF: {frames} frames {size}")
+    return rec
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -2708,6 +3066,9 @@ def main():
     phase_checkpoints()
     phase_helpers(ladder_cap, ladder_ms)
     phase_native()
+    phase_ring2m()
+    phase_slab16m()
+    phase_render_demo()
     log(smi)  # the card and its power limit, beside the numbers below
     src = "particle3d_tpu_torch/csrc/allpairs_sweep.cu"
     table = [("celllist_sweep", "particle3d_tpu_torch/csrc/celllist_sweep.cu",

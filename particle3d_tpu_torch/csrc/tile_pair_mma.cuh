@@ -720,12 +720,40 @@ __device__ __forceinline__ void worklist_sweep_block(
   write_i_side<MODE>(oa, sums, pos, row, w);
 }
 
+// acc += part elementwise (the first NC components), Neumaier's
+// compensated sum: comp gathers the rounding error of each addition,
+// exactly, whichever operand is the larger; the sum is acc + comp.
+template <int NC>
+__device__ __forceinline__ void add_compensated(float (&acc)[MT][2][4],
+                                                float (&comp)[MT][2][4],
+                                                const float (&part)[MT][2][4]) {
+#pragma unroll
+  for (int mb = 0; mb < MT; ++mb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const float s = acc[mb][h][c];
+        const float x = part[mb][h][c];
+        const float t = s + x;
+        comp[mb][h][c] += fabsf(s) >= fabsf(x) ? (s - t) + x : (x - t) + s;
+        acc[mb][h][c] = t;
+      }
+    }
+  }
+}
+
 // K3. One block of TILE threads: receiver tile blockIdx.x of pos [n, 3]
 // (rows past n read row n - 1 and write nothing) against source tiles
 // [blockIdx.y * span, ...) of src [m, 3], one-sided (modes K3_WRAP and
 // K3_WALLS). A ragged last source tile is staged with r2row = -1 and zero
 // V on its unused rows, which are also selected out. Writes the span's
-// sums to out_part[blockIdx.y] ([S, n, 3]).
+// sums to out_part[blockIdx.y] ([S, n, 3]). Each source tile's sums start
+// from zero and join the running sums compensated (add_compensated): a
+// span can hold millions of sources that all count (gravity at N=2M), and
+// one running FP32 sum over them put K3 1.14e-5 rel. L2 from its plain
+// version at 2,097,152^2 gravity, past chip_smoke.py's 1e-5 gate
+// (PERF.md section 6).
 template <int LAW, int MODE, int PP>
 __device__ __forceinline__ void rect_sweep_block(
     const float* __restrict__ pos, const float* __restrict__ u, const int n,
@@ -747,6 +775,7 @@ __device__ __forceinline__ void rect_sweep_block(
   load_receivers<MODE, PP>(r, pos, u, nullptr, nullptr, row0 + wr * MT * 16,
                            lane >> 2, lane & 3, static_cast<size_t>(n - 1));
   float acc[MT][2][4] = {};
+  float comp[MT][2][4] = {};
 
   for (int jt = t0; jt < t1; ++jt) {  // block-uniform control flow throughout
     const int ncols = min(TILE, m - jt * TILE);
@@ -765,11 +794,21 @@ __device__ __forceinline__ void rect_sweep_block(
       }
     }
     __syncthreads();
+    float part[MT][2][4] = {};
     if (ncols == TILE) {
-      sweep_tile_pair<LAW, MODE, PP, true>(sm, r, acc, wr, wc, lane, pf);
+      sweep_tile_pair<LAW, MODE, PP, true>(sm, r, part, wr, wc, lane, pf);
     } else {
-      sweep_tile_pair<LAW, MODE, PP, true, true>(sm, r, acc, wr, wc, lane, pf,
-                                                 ncols);
+      sweep_tile_pair<LAW, MODE, PP, true, true>(sm, r, part, wr, wc, lane,
+                                                 pf, ncols);
+    }
+    add_compensated<Mode<MODE>::NC>(acc, comp, part);
+  }
+#pragma unroll
+  for (int mb = 0; mb < MT; ++mb) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int c = 0; c < 4; ++c) acc[mb][h][c] += comp[mb][h][c];
     }
   }
 

@@ -42,3 +42,10 @@ def allpairs_forces(positions, u, v, cfg: SimConfig, block_i: int = 1024,
                         src_positions, src_v, cfg, scale, ok_j=src_valid)
            for i in range(0, positions.shape[0], block_i)]
     return torch.cat(out, dim=0)
+
+
+def allpairs_accel(state, cfg: SimConfig, block_i: int = 1024):
+    """Force sum scaled into an acceleration (src/lib.rs:246-247)."""
+    u, v = F.pair_features(state, cfg)
+    f = allpairs_forces(state.positions, u, v, cfg, block_i=block_i)
+    return f * float(F.kick_scale(cfg))

@@ -15,12 +15,17 @@ traceback; ranks still alive at the deadline are killed::
 
 ``slab_parity`` runs a ``models.presets.SLAB_RUNS`` configuration on every
 rank of a launch and on one rank, from the same replicated scene, and
-compares the gathered states. ``carry_resume`` saves a stay-sharded carry
+compares the gathered states; ``ring_parity`` does the same for the
+scale-out launcher's ring modes (``examples.scaleout.run_ring``: ring2m on
+the launch's ranks, ring2level on a 2 x D/2 mesh of them, against ring2m
+on one rank). ``carry_resume`` saves a stay-sharded carry
 mid-run with ``utils.orbax_ckpt``, restores it rank by rank and holds the
 resumed run to the uninterrupted one, bit for bit. On D cards::
 
     torchrun --nproc_per_node=D -m particle3d_tpu_torch.parallel.dryrun \\
         --slab-parity slab_2m --steps 8
+    torchrun --nproc_per_node=D -m particle3d_tpu_torch.parallel.dryrun \\
+        --ring-parity ring2m --particles 2097152 --steps 1
 """
 
 from __future__ import annotations
@@ -285,6 +290,44 @@ def slab_parity(mesh, n: int, cfg, dt, kw: dict, steps: int):
             / float(cfg.world_size)}
 
 
+def ring_parity(mesh, mode: str, n: int, steps: int, seed: int = 0):
+    """``run_ring(mode)`` of the scale-out launcher for ``steps`` steps from
+    one ``init_scene`` draw (a CPU generator seeded ``seed``, the
+    launcher's scene) on every rank of ``mesh`` (a ``Mesh``, or a
+    ``Mesh2D`` for ring2level) and, on rank 0, ring2m on one rank of its
+    own. Returns, on rank 0, both records, the largest |dpos| / world
+    between the gathered state and the one-rank state, and the largest
+    |dvel| over the largest |vel|; None on the other ranks. The command
+    line passes when both are at most 1e-5."""
+    from ..examples.scaleout import ring_config, run_ring
+    from ..state import init_scene
+    from .mesh import Mesh2D, make_mesh
+
+    cfg = ring_config()
+    st = init_scene(torch.Generator().manual_seed(seed), n, cfg, mesh.device)
+    rec, shard = run_ring(mode, st, mesh, steps, say=lambda m: None)
+
+    def gather(x):
+        if isinstance(mesh, Mesh2D):  # rows of one host, then the hosts
+            return mesh.dcn.all_gather(mesh.ici.all_gather(x))
+        return mesh.all_gather(x)
+
+    pos, vel = gather(shard.positions), gather(shard.velocities)
+    if mesh.rank:
+        return None
+    rec1, one = run_ring("ring2m", st, make_mesh(1, device=mesh.device),
+                         steps, say=lambda m: None)
+    w = float(cfg.world_size)
+    return {"mode": mode, "ranks": mesh.size, "n": n, "steps": steps,
+            "record": rec, "record_one_rank": rec1,
+            "max_dpos_over_world": _max_gap(one.replace(positions=pos), one,
+                                            w) / w,
+            # the leapfrog's first step moves no particle from rest; the
+            # velocities carry the forces
+            "max_dvel_over_max_vel": float((vel - one.velocities).abs().max()
+                                           / one.velocities.abs().max())}
+
+
 def carry_resume(mesh, n: int, cfg, dt, kw: dict, steps: int, directory: str,
                  seed: int = 0, async_save: bool = False):
     """Checkpoint a stay-sharded carry in the middle of a run and resume it
@@ -345,25 +388,43 @@ def main(argv=None) -> int:
     p.add_argument("--slab-parity", default=None, metavar="CONFIG",
                    help="under torchrun: a SLAB_RUNS configuration on every "
                         "rank against one rank")
+    p.add_argument("--ring-parity", default=None,
+                   choices=("ring2m", "ring2level"),
+                   help="under torchrun: the scale-out launcher's ring mode "
+                        "on every rank against ring2m on one rank")
+    # not --n: torchrun reads that as an ambiguous abbreviation of its
+    # own options (--nnodes, --node-rank, ...) on some Python versions
+    p.add_argument("--particles", type=int, default=2_097_152,
+                   help="--ring-parity: particles")
     p.add_argument("--steps", type=int, default=8)
     a = p.parse_args(argv)
-    if a.slab_parity is None:
+    if a.slab_parity is None and a.ring_parity is None:
         dryrun_multichip(a.ranks or 2, device=a.device)
         return 0
     from ..models.presets import slab_run
     from .launch import initialize_distributed
-    from .mesh import make_mesh
+    from .mesh import make_mesh, make_mesh_2d
 
     initialize_distributed(backend="nccl" if a.device == "cuda" else "gloo")
     mesh = make_mesh(device=a.device)
-    n, cfg, dt, kw = slab_run(a.slab_parity)
-    rec = slab_parity(mesh, n, cfg, dt, kw, a.steps)
     ok = True
-    if rec is not None:
-        ok = (rec["diag"][1:4] == rec["diag_one_rank"][1:4] == [0, 0, 0]
-              and rec["max_dpos_over_world"] <= 1e-5)
-        print(json.dumps({"config": a.slab_parity, **rec, "ok": ok}),
-              flush=True)
+    if a.ring_parity is not None:
+        if a.ring_parity == "ring2level":
+            dcn = 2 if mesh.size % 2 == 0 else 1
+            mesh = make_mesh_2d(dcn, mesh.size // dcn, device=a.device)
+        rec = ring_parity(mesh, a.ring_parity, a.particles, a.steps)
+        if rec is not None:
+            ok = (rec["max_dpos_over_world"] <= 1e-5
+                  and rec["max_dvel_over_max_vel"] <= 1e-5)
+            print(json.dumps({**rec, "ok": ok}), flush=True)
+    else:
+        n, cfg, dt, kw = slab_run(a.slab_parity)
+        rec = slab_parity(mesh, n, cfg, dt, kw, a.steps)
+        if rec is not None:
+            ok = (rec["diag"][1:4] == rec["diag_one_rank"][1:4] == [0, 0, 0]
+                  and rec["max_dpos_over_world"] <= 1e-5)
+            print(json.dumps({"config": a.slab_parity, **rec, "ok": ok}),
+                  flush=True)
     if mesh.size > 1:
         torch.distributed.destroy_process_group()
     return 0 if ok else 1

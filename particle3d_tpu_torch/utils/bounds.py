@@ -19,7 +19,10 @@ Per pair, FP32 + TF32:
     FMAs), gate and clamp 3, law 12 (sqrt, division, repulsion, the
     triangle's FMA 2, abs, 1 - x, max, 1/d, coefficient, branch compare and
     select), sums 6; plus 12 for K3's world-unit wrap (per axis a multiply
-    by 1/w, rint and an FMA) | the coefficient 2P;
+    by 1/w, rint and an FMA) | the coefficient 2P; under gravity the gate
+    is 1 (d^2 < r^2) and the law 11 (d^2 > 0 and its and, the select of a
+    safe d^2, the softening add, sqrt, division, the cube 2, coefficient
+    times G times the cube 2, the select of 0), so 26 in place of 29;
   two-sided (K2, K4), per unordered pair: deltas 3, d^2 5, two gates 2,
     park 1, law parts 10, two directional scales 4, the i-side sums 6 and
     the j-side products and sums 6; plus 7 for the box-unit wrap (rint and
@@ -40,8 +43,12 @@ PEAK_TF32 = 495e12   # FLOP/s, tensor cores, dense
 PEAK_BYTES = 3.35e12  # B/s, device memory
 
 
-def ops_one_sided(p: int, wrap: bool) -> tuple[int, int]:
-    return 29 + (12 if wrap else 0), 2 * p
+_ONE_SIDED_FP32 = {"particle_life": 29, "gravity": 26}
+
+
+def ops_one_sided(p: int, wrap: bool,
+                  law: str = "particle_life") -> tuple[int, int]:
+    return _ONE_SIDED_FP32[law] + (12 if wrap else 0), 2 * p
 
 
 def ops_two_sided(p: int, wrap: bool) -> tuple[int, int]:

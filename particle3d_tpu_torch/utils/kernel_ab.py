@@ -29,7 +29,12 @@ Cases (``CASES``): K1 at 262k (particle_life_large, grid 24, cap 32),
 rank, grid 68, cap 64); K2, K3 and K4 on N=32,768 scenes (particle life
 periodic and walled, Lennard-Jones on a jittered lattice); K2 at 262k
 (particle_life_large_allpairs); K3 with 4,096 sampled receivers against
-its 262,144 sources (``k3_4k_262k``); K4 on the culled rung's worklist at
+its 262,144 sources (``k3_4k_262k``), same-set on the Morton-sorted
+particle_life_large (``k3_262k``, 262,144²), 2,048 sampled receivers
+against the 2,097,152 sources of the ring2m launcher's gravity scene in
+one span, with each build's error against a float64 sum beside the plain
+version's (``k3_2k_2m_gravity``), and that scene's whole launch,
+2,097,152² (``k3_2m_gravity``); K4 on the culled rung's worklist at
 262k (Morton-sorted particle_life_large), with the wrapper's shares of a
 run and with S = 1, 4, 8, 16 and 32 (``k4_262k_s<S>``); K5 exact and fast on
 the 32k particle life scene and at 262k with its ghosts.
@@ -71,13 +76,18 @@ class Case:
     tuple); ``run_base(lib)`` the baseline's, where it is not ``run()``
     with ``lib`` swapped in; ``pick`` the tensors to compare; ``check``
     extra facts about the current build's output; ``gate`` None for bit
-    equality, else (relative L2, max abs share) for the picked forces."""
+    equality, else (relative L2, max abs share) for the picked forces;
+    ``exact()`` a float64 sum of them, against which each build's
+    relative L2 error is reported."""
     run: Callable
     run_base: Callable | None = None
     pick: Callable = lambda out: out if isinstance(out, tuple) else (out,)
     check: Callable = lambda out: {}
     info: dict = field(default_factory=dict)
     gate: tuple | None = None
+    # the picked forces' float64 sum, where the case measures how far each
+    # build's FP32 sums drift from it
+    exact: Callable | None = None
 
 
 def build(module, csrc: Path, workdir: Path) -> ctypes.CDLL:
@@ -232,7 +242,8 @@ def _tile_scene(label):
 
 
 def _k3(label):
-    """K3 same-set on a 32k scene, or 4,096 sampled receivers against the
+    """K3 same-set on a 32k scene or on particle_life_large (``262k``,
+    Morton-sorted), or 4,096 sampled receivers against the
     262,144 sources of particle_life_large_allpairs (chip_smoke.py phase
     7); its forces at K2's gate. A baseline from before the tile-pair
     sweep runs with the spans of the wrapper it was built with."""
@@ -262,6 +273,65 @@ def _k3(label):
     return Case(run=lambda: A.rect_sweep(*ops), run_base=run_base,
                 gate=K2_GATE,
                 info={"n": n, "m": m, "baseline_splits": old,
+                      "bound_ms": b[0], "bound_ms_fp32_only": b[2]})
+
+
+def _k3_2m_gravity_full():
+    """K3's whole launch in the ring2m launcher at one rank (gravity,
+    2,097,152 receivers against the same 2,097,152 sources, seed 0, the
+    wrapper's spans); the two builds' forces at K2's gate."""
+    from ..examples import scaleout as SO
+    from ..ops import allpairs_sweep as A
+    from ..ops import forces as F
+    from ..state import init_scene
+
+    cfg = SO.ring_config()
+    n = SO.ring_n(1, full=True)
+    st = init_scene(torch.Generator().manual_seed(0), n, cfg, "cuda")
+    u, v = F.pair_features(st, cfg)
+    ops = A.rect_operands(st.positions, u, st.positions, v, cfg)
+    b = bound(float(n) * n, ops_one_sided(u.shape[1], True, "gravity"), 0)
+    return Case(run=lambda: A.rect_sweep(*ops),
+                run_base=lambda lib: run_with(
+                    A, lib, lambda: A.rect_sweep(*ops)),
+                gate=K2_GATE,
+                info={"n": n, "m": n, "bound_ms": b[0],
+                      "bound_ms_fp32_only": b[2]})
+
+
+def _k3_2m_gravity():
+    """K3 as the ring2m launcher launches it at one rank
+    (examples/scaleout.py: gravity, N=2,097,152, seed 0), on 2,048 sampled
+    receivers against all sources in one span (the full launch's sum order
+    a receiver); each build's error against a float64 sum, beside the
+    plain version's."""
+    from ..examples import scaleout as SO
+    from ..ops import allpairs_sweep as A
+    from ..ops import forces as F
+    from ..state import init_scene
+
+    cfg = SO.ring_config()
+    n = SO.ring_n(1, full=True)
+    st = init_scene(torch.Generator().manual_seed(0), n, cfg, "cuda")
+    u, v = F.pair_features(st, cfg)
+    idx = torch.randperm(n, generator=torch.Generator().manual_seed(28))
+    idx = idx[:2048].cuda()
+    ops = A.rect_operands(st.positions[idx], u[idx], st.positions, v, cfg)
+
+    def exact():
+        return A.rect_sweep_ref(*(t.double() for t in ops[:5]), *ops[5:])
+
+    want = exact()
+    plain = A.rect_sweep_ref(*ops).double()
+    b = bound(2048 * n, ops_one_sided(u.shape[1], True, "gravity"), 0)
+    return Case(run=lambda: A.rect_sweep(*ops, splits=1),
+                run_base=lambda lib: run_with(
+                    A, lib, lambda: A.rect_sweep(*ops, splits=1)),
+                gate=K2_GATE, exact=exact,
+                info={"n": 2048, "m": n, "splits": 1,
+                      "plain_rel_l2_to_float64": float(
+                          torch.linalg.vector_norm(plain - want)
+                          / torch.linalg.vector_norm(want)),
                       "bound_ms": b[0], "bound_ms_fp32_only": b[2]})
 
 
@@ -400,6 +470,9 @@ CASES = {
        for s in ("particle_life", "walled", "lj")},
     "k2_262k": ("allpairs_sweep", lambda: _k2("262k")),
     "k3_4k_262k": ("allpairs_sweep", lambda: _k3("4k_262k")),
+    "k3_262k": ("allpairs_sweep", lambda: _k3("262k")),
+    "k3_2k_2m_gravity": ("allpairs_sweep", _k3_2m_gravity),
+    "k3_2m_gravity": ("allpairs_sweep", _k3_2m_gravity_full),
     "k4_262k": ("allpairs_sweep", lambda: _k4("262k")),
     **{f"k4_262k_s{s}": ("allpairs_sweep", lambda s=s: _k4("262k", s))
        for s in (1, 4, 8, 16, 32)},
@@ -482,6 +555,14 @@ def compare(case: Case, module, base_lib, reps):
     base_out = run_base()
     torch.cuda.synchronize()
     a, b = case.pick(cur_out), case.pick(base_out)
+    exact = {}
+    if case.exact is not None:
+        want = case.exact()
+        exact = {"rel_l2_to_float64": {
+            k: float(torch.linalg.vector_norm(f.double() - want)
+                     / torch.linalg.vector_norm(want))
+            for k, f in (("current", a[0]), ("baseline", b[0]))}}
+        del want
     equal = all(torch.equal(x, y) for x, y in zip(a, b))
     diff = max(float((x - y).abs().max()) for x, y in zip(a, b))
     if case.gate is None:
@@ -498,7 +579,7 @@ def compare(case: Case, module, base_lib, reps):
     check = case.check(case.run())
     rec = {**case.info, "baseline_ms": times["base"], "current_ms":
            times["cur"], "speedup": ms_b / ms_c, "outputs_bit_identical":
-           equal, "max_abs_diff": diff, **verdict, **check}
+           equal, "max_abs_diff": diff, **verdict, **exact, **check}
     if "bound_ms" in case.info:
         rec.update(share_of_bound_current=case.info["bound_ms"] / ms_c,
                    share_of_bound_baseline=case.info["bound_ms"] / ms_b)

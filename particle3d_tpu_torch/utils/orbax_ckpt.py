@@ -4,11 +4,15 @@ written on ``torch.save``; Orbax is not used).
 
 Layout, as the JAX module's: ``<dir>/<step:010d>/meta.json`` (the config,
 the step index and, for a slab carry, its geometry and global shapes, with
-the JAX module's keys) and ``<dir>/<step:010d>/state/``, which holds one
-file per writing rank, ``rank_<r:05d>.pt``. A state snapshot is written by
-one process. A stay-sharded slab carry (``parallel.domain_sharded``) is
-written by every rank of the mesh, each only its own rows, and restored
-the same way: each rank reads only its own file, with no replicated stage.
+the JAX module's keys, plus ``ranks``, the number of writing ranks) and
+``<dir>/<step:010d>/state/``, which holds one file per writing rank,
+``rank_<r:05d>.pt``. A state snapshot is written by one process. A
+stay-sharded slab carry (``parallel.domain_sharded``) is written by every
+rank of the mesh, each only its own rows, and restored the same way: each
+rank reads only its own file, with no replicated stage. A save over a step
+that more ranks wrote before replaces it, as the JAX module's
+``force=True`` does: rank 0 removes the files of the ranks beyond this
+save's count before it writes ``meta.json``.
 The files are not Orbax's, and this module reads no Orbax files.
 
 With ``async_save=True`` a save copies the tensors to the host before it
@@ -27,6 +31,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import threading
 
 import torch
@@ -42,6 +47,16 @@ _CARRY_FIELDS = ("data", "pid", "limbo_data", "limbo_pid")
 
 def _rank_file(step_dir: str, rank: int) -> str:
     return os.path.join(step_dir, "state", f"rank_{rank:05d}.pt")
+
+
+def _drop_stale_ranks(step_dir: str, size: int) -> None:
+    """Remove the files of ranks >= ``size`` that an earlier save of this
+    step by more ranks left."""
+    state = os.path.join(step_dir, "state")
+    for name in os.listdir(state):
+        m = re.fullmatch(r"rank_(\d+)\.pt", name)
+        if m and int(m.group(1)) >= size:
+            os.remove(os.path.join(state, name))
 
 
 def _write_json(path: str, obj) -> None:
@@ -104,11 +119,13 @@ class OrbaxCheckpointer:
         step_dir = self._step_dir(step)
         os.makedirs(os.path.join(step_dir, "state"), exist_ok=True)
         meta = {"format_version": _FORMAT_VERSION, "step_index": int(step),
-                "config": _config_to_jsonable(cfg), "extra": extra or {}}
+                "config": _config_to_jsonable(cfg), "extra": extra or {},
+                "ranks": 1}
         host = {k: _host_copy(getattr(state, k)) for k in _STATE_FIELDS}
 
         def writes():
             _write_tensors(_rank_file(step_dir, 0), host)
+            _drop_stale_ranks(step_dir, 1)
             _write_json(os.path.join(step_dir, "meta.json"), meta)
 
         self._submit(writes)
@@ -120,7 +137,9 @@ class OrbaxCheckpointer:
         limbo_data, limbo_pid, lost)`` plus the slab geometry needed to
         resume (``sharded_dense_steps`` takes nsc/cap/n). Every rank of
         ``mesh`` (None: one rank) calls it; each writes only its own rows,
-        and rank 0 also writes ``lost`` (replicated) and ``meta.json``.
+        and rank 0 also writes ``lost`` (replicated), removes the files an
+        earlier save of this step by more ranks left, and writes
+        ``meta.json`` with the rank count.
         ``shapes`` in the meta holds the global shapes (rows summed over
         the ranks), as the JAX module's does."""
         size, rank = (1, 0) if mesh is None else (mesh.size, mesh.rank)
@@ -138,7 +157,7 @@ class OrbaxCheckpointer:
         meta = {"format_version": _FORMAT_VERSION, "kind": "slab_carry",
                 "step_index": int(step), "config": _config_to_jsonable(cfg),
                 "slab": {"nsc": int(nsc), "cap": int(cap), "n": int(n)},
-                "shapes": shapes, "extra": extra or {}}
+                "shapes": shapes, "extra": extra or {}, "ranks": size}
         host = {k: _host_copy(t) for k, t in own.items()}
         if rank == 0:
             host["lost"] = _host_copy(lost)
@@ -146,6 +165,7 @@ class OrbaxCheckpointer:
         def writes():
             _write_tensors(_rank_file(step_dir, rank), host)
             if rank == 0:
+                _drop_stale_ranks(step_dir, size)
                 _write_json(os.path.join(step_dir, "meta.json"), meta)
 
         self._submit(writes)
@@ -217,8 +237,9 @@ class OrbaxCheckpointer:
         """-> (carry, config, slab geometry, step_index) of this rank of
         ``mesh`` (None: a one-rank mesh on the card), read from this
         rank's file alone, on the mesh's device. The mesh must have as many
-        ranks as wrote the carry. ``lost`` is read by rank 0 and summed over
-        the mesh, so every rank holds it."""
+        ranks as wrote the carry (``meta.json``'s ``ranks``; a carry whose
+        meta lacks it is refused). ``lost`` is read by rank 0 and summed
+        over the mesh, so every rank holds it."""
         from ..parallel.mesh import make_mesh
 
         self.wait()
@@ -229,11 +250,14 @@ class OrbaxCheckpointer:
         if step is None:
             step = self._latest_step(carry=True)
         step_dir, meta = self._meta(step, carry=True)
-        saved = [f for f in os.listdir(os.path.join(step_dir, "state"))
-                 if f.startswith("rank_") and f.endswith(".pt")]
-        if len(saved) != mesh.size:
+        written = meta.get("ranks")
+        if written is None:
             raise ValueError(
-                f"slab carry at step {step} was written by {len(saved)} "
+                f"slab carry at step {step} has no rank count in its "
+                f"meta.json (an older checkpoint format); save it again")
+        if written != mesh.size:
+            raise ValueError(
+                f"slab carry at step {step} was written by {written} "
                 f"rank(s); it restores only onto a mesh of that size, not "
                 f"{mesh.size} (each rank reads only its own rows)")
         tree = torch.load(_rank_file(step_dir, mesh.rank), map_location="cpu",

@@ -274,3 +274,16 @@ def test_bounds_count_coefficients_at_the_tf32_rate():
     assert abs(k2[0] - 22.56) < 0.01 and abs(k2[2] - 32.82) < 0.01
     assert abs(k5[0] - 28.15) < 0.01
     assert bound(1, (0, 0), 3.35e12)[:2] == (1e3, "bytes")
+
+
+def test_bound_of_k3_under_gravity():
+    """K3's bound at 2,097,152^2 under gravity (the ring2m launcher's
+    block at one rank): 26 + 12 FP32 operations a pair with the wrap, and
+    the coefficient over P = 2 at the TF32 rate."""
+    from particle3d_tpu_torch.utils.bounds import bound, ops_one_sided
+
+    n = 2_097_152
+    assert ops_one_sided(2, True, "gravity") == (38, 4)
+    assert ops_one_sided(5, True) == ops_one_sided(5, True, "particle_life")
+    ms, by, _ = bound(n * n, ops_one_sided(2, True, "gravity"), 0)
+    assert by == "operations" and abs(ms - 2494.4) < 0.1

@@ -14,8 +14,9 @@ each lane evaluates, the deferred lane sums, k-spans, odd and even tile
 counts, the k = 0 diagonal, mask mode, padded rows under Lennard-Jones
 and K5's dead ghost tiles; K4's shares of a receiver tile's run (split
 runs, empty shares), self entries and lower-triangular worklists; K3's
-one-sided sweep with ragged receiver and source tiles, d2 = 0 self pairs
-and source spans. Tolerances are ``chip_smoke.py``'s (the sums'
+one-sided sweep with ragged receiver and source tiles, d2 = 0 self pairs,
+source spans, and its compensated sums over a long span (held against a
+float64 sum). Tolerances are ``chip_smoke.py``'s (the sums'
 order differs from the plain versions'). Skipped where no g++ with
 C++20's ``<barrier>`` is installed.
 """
@@ -367,3 +368,25 @@ def test_k3_matches_plain(libs, label, n, m, splits):
         rec, src = _uniform(n, 6.0, 12, species=12), _uniform(m, 6.0, 13,
                                                                species=12)
     _gate(*_k3(libs[3], rec, src, cfg, splits), K2_TOL)
+
+
+def test_k3_long_gravity_sum_keeps_float32_accuracy(libs):
+    """One receiver tile against 256 source tiles in one span, gravity over
+    the whole box (every pair counts): K3's relative L2 error against a
+    float64 sum at most twice its plain version's (the per-tile sums join
+    the running sums compensated; one running FP32 sum drifts further)."""
+    w = 40.0
+    cfg = SimConfig(force_law="gravity", particle_effect_radius=20.0,
+                    world_size=w, gravity_softening=0.05).validate()
+    rec, src = _uniform(T, w, 20), _uniform(256 * T, w, 21)
+    got, plain = _k3(libs[3], rec, src, cfg, 1)
+    u = pair_features(rec, cfg)[0]
+    v = pair_features(src, cfg)[1]
+    ops = A.rect_operands(rec.positions, u, src.positions, v, cfg)
+    exact = A.rect_sweep_ref(*(t.double() for t in ops[:5]), *ops[5:])
+
+    def rel(f):
+        return float(torch.linalg.vector_norm(f.double() - exact)
+                     / torch.linalg.vector_norm(exact))
+
+    assert rel(got) <= 2 * rel(plain)

@@ -15,13 +15,14 @@ import torch
 from particle3d_tpu import reference_config
 from particle3d_tpu.engine.step import step as jax_step, warmup as jax_warmup
 from particle3d_tpu.ops import forces as JF
+from particle3d_tpu.ops.allpairs import allpairs_accel as jax_accel
 from particle3d_tpu.ops.allpairs import allpairs_forces as jax_allpairs
 from particle3d_tpu.state import from_numpy as jax_from_numpy
 
 import particle3d_tpu_torch as P
 from particle3d_tpu_torch.config import BOUNDARIES, INTEGRATORS, from_jax_config
 from particle3d_tpu_torch.ops import forces as TF
-from particle3d_tpu_torch.ops.allpairs import allpairs_forces
+from particle3d_tpu_torch.ops.allpairs import allpairs_accel, allpairs_forces
 
 LAWS = ["particle_life", "lennard_jones", "gravity", "spring"]
 W = 10.0
@@ -97,6 +98,18 @@ def test_allpairs_matches_jax(law, wrap):
     got = allpairs_forces(tst.positions, tu, tv, from_jax_config(cfg),
                           block_i=128)
     _close(got, want, atol=1e-6 * np.abs(want).max())
+
+
+@pytest.mark.parametrize("law", LAWS)
+def test_allpairs_accel_matches_jax(law):
+    """The force sum times kick_scale; relative L2 <= 1e-6 (the sums differ
+    in order only)."""
+    cfg = _cfg(law)
+    jst, tst = _scene(300, 4)
+    want = np.asarray(jax_accel(jst, cfg), np.float64)
+    got = allpairs_accel(tst, from_jax_config(cfg), block_i=128).double().numpy()
+    assert np.abs(want).max() > 0
+    assert np.linalg.norm(got - want) <= 1e-6 * np.linalg.norm(want)
 
 
 @pytest.mark.parametrize("boundary", BOUNDARIES)

@@ -35,6 +35,17 @@ SLAB_N = 512
 SLAB_KW = dict(nsc=8, cap=32, mcap=256, migcap=256, ocap=0)
 
 
+@pytest.fixture(autouse=True)
+def _one_torch_thread():
+    """The slab and ring steps here are long chains of small ops: one
+    intra-op thread runs them faster than several and leaves the cores to
+    the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _scene(n=128):
     jcfg = jax_reference()
     jst = jax_init(jax.random.PRNGKey(0), n, jcfg)
@@ -47,10 +58,28 @@ def _equal_states(a, b):
                          "accel"))
 
 
-def _fake_carry():
-    return (torch.zeros((8, 4)), torch.full((8,), -1, dtype=torch.int32),
+def _fake_carry(fill=0.0):
+    return (torch.full((8, 4), fill), torch.full((8,), -1, dtype=torch.int32),
             torch.zeros((2, 4)), torch.full((2,), -1, dtype=torch.int32),
             torch.tensor(0, dtype=torch.int32))
+
+
+class _StandInMesh:
+    """Rank ``rank`` of a mesh of ``size`` ranks, all in this process: every
+    stand-in rank saves the same rows, so a sum over the mesh is ``size``
+    times this rank's share."""
+
+    device = torch.device("cpu")
+
+    def __init__(self, size, rank):
+        self.size, self.rank = size, rank
+
+    def psum(self, x):
+        return x * self.size
+
+
+def _rank_files(ck_dir, step):
+    return sorted(os.listdir(os.path.join(ck_dir, f"{step:010d}", "state")))
 
 
 def test_round_trip(tmp_path):
@@ -128,6 +157,12 @@ def test_refuses_wrong_kind_and_version(tmp_path):
     meta.write_text(json.dumps(d))
     with pytest.raises(ValueError, match="version"):
         ck.restore(1, device="cpu")
+    meta = tmp_path / "ck" / f"{2:010d}" / "meta.json"
+    d = json.loads(meta.read_text())
+    del d["ranks"]
+    meta.write_text(json.dumps(d))
+    with pytest.raises(ValueError, match="no rank count"):
+        ck.restore_carry(one, 2)
     ck.close()
 
 
@@ -152,7 +187,47 @@ def test_meta_matches_jax_checkpointer(tmp_path):
         name = os.path.join(f"{step:010d}", "meta.json")
         want = json.loads((tmp_path / "jax" / name).read_text())
         got = json.loads((tmp_path / "torch" / name).read_text())
+        assert got.pop("ranks") == 1  # the port's one key more
         assert got == want
+
+
+def test_fewer_ranks_resave_a_step(tmp_path):
+    """A step saved by 2 ranks, then saved again by 1: the second save
+    leaves only its own file and restores on 1 rank."""
+    cfg = P.reference_config()
+    d = str(tmp_path / "ck")
+    ck = OrbaxCheckpointer(d)
+    for rank in (0, 1):
+        ck.save_carry(4, _fake_carry(), cfg, nsc=4, cap=2, n=16,
+                      mesh=_StandInMesh(2, rank))
+    assert _rank_files(d, 4) == ["rank_00000.pt", "rank_00001.pt"]
+    with pytest.raises(ValueError, match="written by 2 rank"):
+        ck.restore_carry(make_mesh(1, device="cpu"))
+    again = _fake_carry(fill=1.0)
+    ck.save_carry(4, again, cfg, nsc=4, cap=2, n=8)
+    assert _rank_files(d, 4) == ["rank_00000.pt"]
+    carry, _, slab, step = ck.restore_carry(make_mesh(1, device="cpu"))
+    assert step == 4 and slab == {"nsc": 4, "cap": 2, "n": 8}
+    assert all(torch.equal(a, b) for a, b in zip(carry, again))
+    ck.close()
+
+
+def test_snapshot_over_a_carry_step(tmp_path):
+    """A state snapshot saved over a step that 2 ranks saved as a carry
+    leaves only rank 0's file, and restores."""
+    st, cfg, _, _ = _scene()
+    d = str(tmp_path / "ck")
+    ck = OrbaxCheckpointer(d)
+    for rank in (0, 1):
+        ck.save_carry(5, _fake_carry(), cfg, nsc=4, cap=2, n=16,
+                      mesh=_StandInMesh(2, rank))
+    ck.save(5, st, cfg)
+    assert _rank_files(d, 5) == ["rank_00000.pt"]
+    out, _, step = ck.restore(device="cpu")
+    assert step == 5 and _equal_states(out, st)
+    with pytest.raises(ValueError, match="state snapshot"):
+        ck.restore_carry(make_mesh(1, device="cpu"), 5)
+    ck.close()
 
 
 def test_slab_carry_one_rank(tmp_path):

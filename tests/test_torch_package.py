@@ -63,7 +63,9 @@ def test_every_module_imports_with_jax_blocked():
             "particle3d_tpu_torch.utils.tune",
             "particle3d_tpu_torch.utils.orbax_ckpt",
             "particle3d_tpu_torch.native",
-            "particle3d_tpu_torch.examples.learn_matrix"} <= set(names)
+            "particle3d_tpu_torch.examples.learn_matrix",
+            "particle3d_tpu_torch.examples.scaleout",
+            "particle3d_tpu_torch.examples.render_demo"} <= set(names)
 
 
 def test_from_jax_config_round_trip():
