@@ -225,7 +225,16 @@ ghost-image sweep K5 (csrc/allpairs_mxu.cu), and the C++ reference engine
      restore MB/s; the directory deleted;
  30. examples/render_demo.py on particle_life_large: 16 warm steps, 8
      frames of 4 steps at 480x360 into a GIF under build/chip_smoke/ (8
-     frames), one K1 launch a step, ms a frame.
+     frames), one K1 launch a step, ms a frame;
+ 31. the bench command: particle3d_tpu_torch.bench.main, the function
+     `python -m particle3d_tpu_torch bench` runs, in process with every
+     launch count at 0: its one JSON line (logged) holds exactly the keys
+     of BENCH_r05.json's "parsed", every *_rel_err < 5e-5, every
+     *_trouble_*, *_lost_* and *_committed_inexact 0, and
+     reprobe_culled_then_cell_onchip 1; K1, K1 halo, K2, K3 and K4 each
+     launched (K5 not), the phase's seconds; then K4 at N=1,048,576
+     (particle_life_1m, Morton-sorted) timed and held against its plain
+     version, with its worklist and bound.
 
 Tolerance for every force comparison: relative L2 error <= 1e-5 and max
 abs error <= 1e-4 * max|F|. Between a kernel and its plain version only
@@ -243,7 +252,7 @@ one pair at distance 0.012 puts the formulation's own max abs error at
 The second-to-last line is a JSON record of each kernel (K1 and its halo
 mode are separate entries): launches on the path that drives it (each
 path runs with every count set to 0 just before it; K1 halo's is the 8M
-timed window), and, under "launches_by_path", on phases 20-30's paths;
+timed window), and, under "launches_by_path", on phases 20-31's paths;
 error against the plain version, its time and the plain
 version's at the stated shape, and the bound: the larger of the operations
 over their peak rates (the rank-1 coefficients, and K5 fast mode's Gram
@@ -2014,9 +2023,10 @@ def phase_server(app):
 ADAPTIVE_STEPS = 32   # phase 20: two windows of 16 on slab_2m
 ADAPTIVE_WINDOW = 16
 MASK_STEP = 14        # the step of slab_2m's first masked row (seed 0)
-# launches on phases 20-30's paths (K1, K1 halo, K3, K4), each from 0
+# launches on phases 20-31's paths (K1, K1 halo, K2, K3, K4), each from 0
 PATH_LAUNCHES = {"celllist_sweep": {}, "celllist_sweep_halo": {},
-                 "allpairs_rect": {}, "allpairs_pairlist": {}}
+                 "allpairs_tri": {}, "allpairs_rect": {},
+                 "allpairs_pairlist": {}}
 
 
 def _zero_state(n):
@@ -3027,6 +3037,97 @@ def phase_render_demo():
     return rec
 
 
+BENCH_KERNELS = {"celllist_sweep": "celllist_sweep",
+                 "celllist_halo": "celllist_sweep_halo",
+                 "allpairs_tri": "allpairs_tri", "allpairs_rect": "allpairs_rect",
+                 "allpairs_pairlist": "allpairs_pairlist"}
+N_1M = 1_048_576
+
+
+def phase_bench():
+    """The bench command's function in process: its JSON line against the
+    JAX harness's keys and gates, its launches; then K4 at 1M."""
+    import contextlib
+    import io
+
+    from particle3d_tpu_torch import bench
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+
+    log(f"[31] the bench command: particle3d_tpu_torch.bench.main(['--device', "
+        f"'{DEVICE}']), in process")
+    with open("BENCH_r05.json") as f:
+        want = set(json.load(f)["parsed"])
+    sync()
+    torch.cuda.empty_cache()
+    reset_kernel_launches()
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rec = bench.main(["--device", DEVICE])
+    secs = time.perf_counter() - t0
+    launches = kernel_launches()
+    lines = out.getvalue().strip().splitlines()
+    log(f"  bench line: {lines[-1] if lines else '(none)'}")
+    if len(lines) != 1 or json.loads(lines[0]) != rec:
+        raise AssertionError(f"bench printed {len(lines)} lines, not its one "
+                             f"JSON record")
+    if set(rec) != want:
+        raise AssertionError(f"bench keys: missing {sorted(want - set(rec))}, "
+                             f"extra {sorted(set(rec) - want)}")
+    for key, value in rec.items():
+        if key in ("metric", "unit"):
+            continue
+        if not math.isfinite(value):
+            raise AssertionError(f"bench {key} = {value}")
+        if key.endswith("_rel_err") and not value < bench.GATE:
+            raise AssertionError(f"bench gate {key} = {value:.3e}")
+        if ("_trouble_" in key or "_lost_" in key
+                or key.endswith("_committed_inexact")) and value != 0:
+            raise AssertionError(f"bench {key} = {value}")
+    if rec["reprobe_culled_then_cell_onchip"] != 1:
+        raise AssertionError("bench: the re-probe gate did not hold")
+    log(f"  launches: {_nonzero(launches)}")
+    for counter, kname in BENCH_KERNELS.items():
+        if not launches[counter]:
+            raise AssertionError(f"bench: {kname} never launched")
+        PATH_LAUNCHES[kname]["bench"] = launches[counter]
+    if launches["allpairs_mxu"]:
+        raise AssertionError("bench: K5 launched (bench.py never runs it)")
+    log(f"  34 keys, 7 gates < {bench.GATE:g}, trouble/lost/inexact 0, "
+        f"re-probe 1; {secs:.1f} s (the phase's bench, kernels already "
+        f"built)")
+    torch.cuda.empty_cache()
+
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.ops import allpairs_sweep as A
+    from particle3d_tpu_torch.ops import forces as F
+
+    st, cfg, _ = make_scene("particle_life_1m", seed=0, n=N_1M,
+                            device=DEVICE)
+    st = _morton_sorted(st, cfg)
+    args, count = _worklist_operands(st, cfg)
+    wj = args[6]
+    ms, (oa, ob) = timed_ms(lambda: A.pairlist_sweep(*args), 3)
+    got = A.pairlist_forces(oa, ob, wj)
+    t = A.KERNEL_TILE
+    nt = N_1M // t
+    pairs = (count - nt) * t * t + nt * t * (t - 1) / 2
+    u, _ = F.pair_features(st, cfg)
+    b = bound(pairs, ops_two_sided(u.shape[1], True),
+              nbytes(*args[:7], oa, ob))
+    del oa, ob
+    plain_ms, (pa, pb) = timed_ms(lambda: A.pairlist_sweep_ref(*args), 1,
+                                  warm=False)
+    log(f"  K4 at N={N_1M}: {ms:.3f} ms over {count} tile pairs (of "
+        f"{nt * (nt + 1) // 2}), plain {plain_ms:.3f} ms, {bound_text(b)}")
+    err = compare(f"K4 N={N_1M} vs its plain version", got,
+                  A.pairlist_forces(pa, pb, wj))
+    del got, pa, pb, args, st
+    torch.cuda.empty_cache()
+    return {"record": rec, "seconds": secs, "k4_1m_ms": ms,
+            "k4_1m_count": count, "k4_1m_bound": b, "k4_1m_err": err}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -3069,6 +3170,7 @@ def main():
     phase_ring2m()
     phase_slab16m()
     phase_render_demo()
+    phase_bench()
     log(smi)  # the card and its power limit, beside the numbers below
     src = "particle3d_tpu_torch/csrc/allpairs_sweep.cu"
     table = [("celllist_sweep", "particle3d_tpu_torch/csrc/celllist_sweep.cu",

@@ -12,6 +12,8 @@
     python -m particle3d_tpu_torch tune --preset particle_life_large --steps 8
     python -m particle3d_tpu_torch slab --config slab_8m --steps 10
     torchrun --nproc_per_node=4 -m particle3d_tpu_torch slab --config slab_8m
+    python -m particle3d_tpu_torch bench
+    python -m particle3d_tpu_torch bench --device cpu
 
 ``run`` prints one JSON line: the JAX package's fields plus the number of
 force-kernel launches (``kernel_launches``, with one count per kernel in
@@ -32,6 +34,10 @@ decomposition, stay-sharded: one rank by default, or every rank of a
 torchrun launch (one process per card, NCCL). After one untimed step,
 rank 0 prints one JSON line with the timed window's ms/step and
 diagnostics.
+
+``bench`` runs the benchmark harness (``bench.py``): the JAX package's
+timed paths and exactness gates on the card, one JSON line with its keys.
+``--device cpu`` runs its small CPU branch; a failed gate exits non-zero.
 """
 
 from __future__ import annotations
@@ -251,6 +257,12 @@ def _cmd_tune(a):
     return rec
 
 
+def _cmd_bench(a):
+    from .bench import main as bench_main
+
+    return bench_main(["--device", a.device])
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(prog="particle3d_tpu_torch", description=__doc__)
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -321,6 +333,11 @@ def main(argv=None):
     t.add_argument("--seed", type=int, default=0)
     t.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
     t.set_defaults(fn=_cmd_tune)
+
+    b = sub.add_parser("bench", help="time the port's paths and assert their "
+                                     "exactness gates (one JSON line)")
+    b.add_argument("--device", choices=("cuda", "cpu"), default="cuda")
+    b.set_defaults(fn=_cmd_bench)
 
     ls = sub.add_parser("presets", help="list ported scene presets")
     ls.set_defaults(fn=_cmd_presets)

@@ -192,11 +192,12 @@ SLAB_RUNS = {
 }
 
 
-def slab_run(name: str):
-    """-> (n, cfg, dt, kw) of a ``SLAB_RUNS`` entry: ``kw`` holds the
-    geometry and capacities that ``init_sharded_dense`` (nsc, cap, migcap)
-    and ``sharded_dense_steps`` (all of them) take."""
-    r = dict(SLAB_RUNS[name])
+def slab_run(name: str, **overrides):
+    """-> (n, cfg, dt, kw) of a ``SLAB_RUNS`` entry, ``overrides`` replacing
+    its values: ``kw`` holds the geometry and capacities that
+    ``init_sharded_dense`` (nsc, cap, migcap) and ``sharded_dense_steps``
+    (all of them) take."""
+    r = {**SLAB_RUNS[name], **overrides}
     n = r.pop("n")
     cfg = SimConfig(world_size=r.pop("world_size"), neighbor="celllist_pallas",
                     cell_grid=r["nsc"], cell_capacity=r["cap"]).validate()
