@@ -234,7 +234,17 @@ ghost-image sweep K5 (csrc/allpairs_mxu.cu), and the C++ reference engine
      reprobe_culled_then_cell_onchip 1; K1, K1 halo, K2, K3 and K4 each
      launched (K5 not), the phase's seconds; then K4 at N=1,048,576
      (particle_life_1m, Morton-sorted) timed and held against its plain
-     version, with its worklist and bound.
+     version, with its worklist and bound;
+ 32. host synchronisations (utils.profiling's recorder): on
+     particle_life_large at N=262,144, a 256-step ladder episode from cap
+     32, a ladder held at cap 16 (every window masks: culled windows, a
+     rewound cell re-probe), and app frames (run_steps(2) and a 640x480
+     render) on the cadenced, carry and culled paths, under a
+     torch.profiler session with torch's GPU trace on: every stream,
+     device or event synchronisation made from the port's code falls
+     inside one of the recorder's sync.* spans and every such span holds
+     one at least (the sites and the syncs a span, logged); the
+     recorder's cost a call on this host, off and on.
 
 Tolerance for every force comparison: relative L2 error <= 1e-5 and max
 abs error <= 1e-4 * max|F|. Between a kernel and its plain version only
@@ -3128,6 +3138,130 @@ def phase_bench():
             "k4_1m_count": count, "k4_1m_bound": b, "k4_1m_err": err}
 
 
+def phase_host_syncs():
+    """Every host synchronisation on the benchmark's paths falls inside a
+    sync span of the recorder, and every sync span holds one. Runs last:
+    torch's GPU trace, once on, stays on for the process."""
+    import collections
+
+    from torch.cuda import _gpu_trace
+    from torch.profiler import ProfilerActivity, profile
+
+    import particle3d_tpu_torch
+    from particle3d_tpu_torch.app.driver import SimulationApp
+    from particle3d_tpu_torch.engine.step import simulate_dense_adaptive
+    from particle3d_tpu_torch.models import make_scene
+    from particle3d_tpu_torch.utils import profiling as prof
+
+    log(f"[32] host synchronisations against the recorder's sync spans: "
+        f"particle_life_large, N={N_LARGE}")
+    pkg = os.path.dirname(particle3d_tpu_torch.__file__) + os.sep
+    skip = os.path.abspath(prof.__file__)
+    seen = []      # (sync span or None, the port's line that synchronised)
+    armed = [False]
+
+    def port_line():
+        f = sys._getframe(1)
+        while f is not None:
+            fn = os.path.abspath(f.f_code.co_filename)
+            if fn.startswith(pkg) and fn != skip:
+                return f"{fn[len(pkg):]}:{f.f_lineno}"
+            f = f.f_back
+        return None
+
+    def hit(*_):
+        if not armed[0]:
+            return
+        where = port_line()
+        if where is None:
+            return
+        top = prof.recorded().innermost()
+        inside = top is not None and top.name.startswith("sync.")
+        seen.append((top if inside else None, where))
+
+    torch._C._activate_gpu_trace()
+    for register in (_gpu_trace.register_callback_for_stream_synchronization,
+                     _gpu_trace.register_callback_for_device_synchronization,
+                     _gpu_trace.register_callback_for_event_synchronization):
+        register(hit)
+
+    st, cfg, dt = make_scene("particle_life_large", seed=0, n=N_LARGE,
+                             device=DEVICE)
+    c16 = cfg.replace(cell_capacity=16)
+
+    def app_frames(app, frames):
+        for _ in range(frames):
+            app.run_steps(2)
+            app.render(640, 480)
+
+    def work(k):
+        simulate_dense_adaptive(st, cfg, dt, 4 * k, chunk=k)
+        simulate_dense_adaptive(st, c16, dt, 9 * k // 4, chunk=k // 4,
+                                max_cap=16)
+        app = SimulationApp(state=st, cfg=cfg, device=DEVICE)
+        app_frames(app, k // 8)                 # cadenced
+        app._per_step_rebuild = True
+        app_frames(app, k // 16)                # carry
+        app._per_step_rebuild = False
+        app._cell_fallback = True
+        app_frames(app, k // 16)                # culled
+        app._recheck = True
+        app_frames(app, 1)                      # back to the base capacity
+
+    work(16)   # loads the kernels, outside the count
+    sync()
+    armed[0] = True
+    with profile(activities=[ProfilerActivity.CUDA]):
+        work(64)
+        sync()
+    armed[0] = False
+    rec = prof.recorded()
+    spans = [x for x in rec.spans if x.name.startswith("sync.")]
+    if rec.counters.get("host_syncs") != len(spans):
+        raise AssertionError(f"host_syncs {rec.counters.get('host_syncs')} "
+                             f"against {len(spans)} sync spans")
+    outside = collections.Counter(w for top, w in seen if top is None)
+    per_span = collections.Counter(id(top) for top, _ in seen
+                                   if top is not None)
+    sites = collections.Counter((top.name, w) for top, w in seen
+                                if top is not None)
+    for (name, where), n in sorted(sites.items()):
+        log(f"  {name} at {where}: {n} synchronisations")
+    by_name = collections.defaultdict(list)
+    for x in spans:
+        by_name[x.name].append(per_span.get(id(x), 0))
+    for name, hits in sorted(by_name.items()):
+        log(f"  {name}: {len(hits)} spans, synchronisations a span "
+            f"{min(hits)}-{max(hits)}")
+    empty = sorted({n for n, hits in by_name.items() if min(hits) == 0})
+    if outside or empty:
+        raise AssertionError(f"synchronisations outside any sync span: "
+                             f"{dict(outside)}; sync spans with none: {empty}")
+    log(f"  {len(seen)} synchronisations, all inside the {len(spans)} sync "
+        f"spans; counters {rec.counters}")
+
+    def per_call_us(fn, calls=200_000):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        return (time.perf_counter() - t0) / calls * 1e6
+
+    def one_span():
+        with prof.span("x"):
+            pass
+
+    def one_sync():
+        with prof.host_sync("sync.x"):
+            pass
+
+    off = (per_call_us(one_span), per_call_us(one_sync))
+    with profile(activities=[ProfilerActivity.CUDA]):
+        on = (per_call_us(one_span), per_call_us(one_sync))
+    log(f"  recorder a call on this host: span {off[0]:.3f} us off, "
+        f"{on[0]:.3f} us on; host_sync {off[1]:.3f} us off, "
+        f"{on[1]:.3f} us on")
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the GPU only",
@@ -3171,6 +3305,7 @@ def main():
     phase_slab16m()
     phase_render_demo()
     phase_bench()
+    phase_host_syncs()
     log(smi)  # the card and its power limit, beside the numbers below
     src = "particle3d_tpu_torch/csrc/allpairs_sweep.cu"
     table = [("celllist_sweep", "particle3d_tpu_torch/csrc/celllist_sweep.cu",

@@ -1,0 +1,5 @@
+"""Times a committed step of the traced episode that the host waited for
+the card: the program's ``host_syncs`` counter (one a blocking read,
+copy or synchronise) over the committed steps."""
+
+from p3dbench.program_trace import syncs_per_step as read  # noqa: F401

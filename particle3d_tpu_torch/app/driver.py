@@ -32,7 +32,7 @@ from ..render.splat import render_frame
 from ..state import init_scene, resize, resolve_device, to_device
 from ..utils.checkpoint import load_checkpoint, save_checkpoint
 from ..utils.metrics import measure_metrics
-from ..utils.profiling import StepTimer
+from ..utils.profiling import StepTimer, host_sync, span
 
 
 class SimulationApp:
@@ -78,8 +78,14 @@ class SimulationApp:
         self._degraded_batches = 0
 
     def _sync(self):
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        with host_sync("sync.app_batch_end"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+
+    def _build_drops(self, dense) -> int:
+        """Particles a fresh dense build left without a slot."""
+        with host_sync("sync.app_build_drop"):
+            return int(self.state.n - (dense.pid >= 0).sum())
 
     def _invalidate_dense(self) -> None:
         """Called by every scene-changing control: drops the kept layout
@@ -106,7 +112,7 @@ class SimulationApp:
         if self._cap_escalated and base_cap >= self._cap_escalated:
             return
         dense = build_dense(self.state, self.cfg, nsc, base_cap, self.ocap)
-        if int(self.state.n - (dense.pid >= 0).sum()) == 0:
+        if self._build_drops(dense) == 0:
             self._cell_fallback = False
             self._cap_escalated = None
             self._dense = dense
@@ -191,35 +197,44 @@ class SimulationApp:
         cadenced path: a build drop) is never committed: it re-runs at
         the next capacity, and past ``max_cap`` on the culled rung. No
         committed batch is inexact."""
+        with span("app.batch", steps=n_steps) as batch:
+            batch.set(path=self._run_batch(n_steps))
+
+    def _run_batch(self, n_steps: int) -> str:
+        """``run_steps``' batch; returns the path that committed it."""
         dt = np.float32(1.0 / self.update_rate)
         if self.cfg.neighbor != "celllist_pallas":
             self.state = simulate(self.state, self.cfg, dt, n_steps)
             self._sync()
             self.step_index += n_steps
-            return
+            return "simulate"
         self._maybe_recover()
         if self._cell_fallback:
             self._run_fallback(dt, n_steps)
-            return
+            return "fallback"
         nsc, cap = self._cell_geometry()
         if self._cap_escalated:
             cap = max(cap, self._cap_escalated)
         budget = self.drift_budget()
-        vmax = float(torch.sqrt(torch.max(torch.sum(
-            self.state.velocities ** 2, dim=-1))))
+        with host_sync("sync.app_speed"):
+            vmax = float(torch.sqrt(torch.max(torch.sum(
+                self.state.velocities ** 2, dim=-1))))
         est_drift = 2.0 * vmax * float(dt) * n_steps
         if (budget <= 0.0 or self._per_step_rebuild or n_steps == 1
                 or est_drift > budget):
+            path = "carry"
             committed = self._run_carry(dt, n_steps, nsc, cap)
         else:
+            path = "cadenced"
             committed = self._run_cadenced(dt, n_steps, nsc, cap, budget)
         if not committed:
             # the masked batch was never committed: re-run it on the
             # capacity-free rung
             self._run_fallback(dt, n_steps)
-            return
+            return "fallback"
         self._sync()
         self.step_index += n_steps
+        return path
 
     def _run_carry(self, dt, n_steps: int, nsc: int, cap: int) -> bool:
         """The batch on the kept dense layout; False if it masked at
@@ -233,7 +248,7 @@ class SimulationApp:
                 dense = build_dense(self.state, self.cfg, nsc, cap, self.ocap)
                 # a first-build drop would ride the whole batch frozen:
                 # escalate before running anything
-                if int(self.state.n - (dense.pid >= 0).sum()) > 0:
+                if self._build_drops(dense) > 0:
                     cap = self._escalate(cap)
                     if cap is None:
                         return False
@@ -243,7 +258,9 @@ class SimulationApp:
             new_dense, (_, mis) = simulate_dense_carry(
                 self._dense, self.cfg, dt, n_steps, nsc, cap,
                 default_mover_capacity(self.state.n), self.ocap)
-            if int(mis) > 0:
+            with host_sync("sync.app_masked"):
+                masked = int(mis)
+            if masked > 0:
                 # rewind (self.state is still the batch's start)
                 self._dense = None
                 cap = self._escalate(cap)
@@ -253,7 +270,8 @@ class SimulationApp:
             break
         self._dense = new_dense
         self.state = scatter_back(self._dense, self.state)
-        self.capacity_masked = max(self.capacity_masked, int(mis))
+        with host_sync("sync.app_masked"):
+            self.capacity_masked = max(self.capacity_masked, int(mis))
         return True
 
     def _run_cadenced(self, dt, n_steps: int, nsc: int, cap: int,
@@ -266,7 +284,9 @@ class SimulationApp:
             out, drift, dropped = simulate_cadenced(
                 self.state, self.cfg, dt, n_steps, rebuild_every=n_steps,
                 nsc=nsc, cap=cap)
-            if int(dropped) == 0:
+            with host_sync("sync.app_dropped"):
+                dropped = int(dropped)
+            if dropped == 0:
                 break
             # the build froze particles: rewind and escalate
             cap = self._escalate(cap)
@@ -276,7 +296,8 @@ class SimulationApp:
         # the state moved outside the kept dense layout, which would now
         # replay stale rows (no control changed: not _invalidate_dense)
         self._dense = None
-        drift = float(drift)
+        with host_sync("sync.app_drift"):
+            drift = float(drift)
         self.max_drift = max(self.max_drift, drift)
         if drift > budget:
             # this batch may have missed in-range pairs: stop trusting
@@ -377,9 +398,11 @@ class SimulationApp:
                method: str = "dilate") -> np.ndarray:
         """uint8 [H, W, 3], rendered on the state's device."""
         with self.frame_timer:
-            img = render_frame(self.state.positions, self.state.species,
-                               self.cfg, self.camera, width, height,
-                               method=method).cpu().numpy()
+            frame = render_frame(self.state.positions, self.state.species,
+                                 self.cfg, self.camera, width, height,
+                                 method=method)
+            with host_sync("sync.render_copy"):
+                img = frame.cpu().numpy()
         return img
 
     def metrics(self) -> dict:

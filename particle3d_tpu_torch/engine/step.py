@@ -23,6 +23,7 @@ from ..config import SimConfig, f32
 from ..state import ParticleState
 from ..ops import forces as F
 from ..ops.allpairs import allpairs_forces
+from ..utils.profiling import count, host_sync, span
 from .boundaries import apply_boundary
 
 
@@ -209,14 +210,16 @@ def dense_pair_forces(positions, ds, mis, cfg: SimConfig, nsc: int, cap: int,
     plus the overflow sidecar for the ``mis`` worklist when ``ocap``."""
     from ..ops.celllist_dense import dense_forces_fresh
 
-    f = dense_forces_fresh(positions, ds, cfg, nsc, cap)
+    with span("dense.forces"):
+        f = dense_forces_fresh(positions, ds, cfg, nsc, cap)
     # a select, not a multiply: an empty slot's row is a stale copy that can
     # sit on top of the particle it left, where a singular law (Lennard-
     # Jones) gives it an infinite force, and inf * 0 would be a NaN that
     # integrates and then poisons its neighbours as a source (0 * NaN)
     f = torch.where((ds.r2 > 0.0)[:, None], f, 0.0)
     if ocap:
-        f = _sidecar_apply(f, positions, ds, mis, cfg, nsc, cap)
+        with span("dense.sidecar"):
+            f = _sidecar_apply(f, positions, ds, mis, cfg, nsc, cap)
     return f
 
 
@@ -246,9 +249,10 @@ def _dense_scan(ds0, cfg: SimConfig, dt, num_steps: int, nsc: int, cap: int,
                            accel=ds.acc)
         ps = step(ps, cfg, dt, accel_fn=accel_fn)
         ds = ds.replace(data=torch.cat([ps.positions, ps.velocities, ps.accel], 1))
-        ds, n_mov, n_mis, mis = rebind(ds, cfg, nsc, cap, mcap, ocap)
-        if ocap:
-            n_mis = n_mis - (mis < s_total).sum()
+        with span("dense.rebind"):
+            ds, n_mov, n_mis, mis = rebind(ds, cfg, nsc, cap, mcap, ocap)
+            if ocap:
+                n_mis = n_mis - (mis < s_total).sum()
         mx_mov = torch.maximum(mx_mov, n_mov)
         mx_mis = torch.maximum(mx_mis, n_mis)
     return ds, (mx_mov, mx_mis)
@@ -276,8 +280,9 @@ def _cadenced_window(s: ParticleState, cfg: SimConfig, dt, k: int, nsc: int,
     from ..ops.celllist_sweep import (build_layout, dense_forces, layout_drift,
                                       slot_of_particle)
 
-    u, v = F.pair_features(s, cfg)
-    layout = build_layout(s.positions, u, v, cfg, nsc, cap)
+    with span("cadenced.build"):
+        u, v = F.pair_features(s, cfg)
+        layout = build_layout(s.positions, u, v, cfg, nsc, cap)
     # the state moves into the slots and integrates there: between rebuilds
     # nothing is gathered or scattered. Empty slots ride as inert rows at
     # the origin: never sources (gate -1), and K1 selects their own force
@@ -309,7 +314,9 @@ def _cadenced_window(s: ParticleState, cfg: SimConfig, dt, k: int, nsc: int,
     s = s.replace(**{f: torch.where(ok, getattr(dense, f)[inv_safe],
                                     getattr(s, f))
                      for f in ("positions", "velocities", "accel")})
-    return s, layout_drift(layout, s.positions, cfg), s.n - present.sum()
+    with span("cadenced.drift"):
+        drift = layout_drift(layout, s.positions, cfg)
+    return s, drift, s.n - present.sum()
 
 
 def simulate_cadenced(state: ParticleState, cfg: SimConfig, dt,
@@ -345,11 +352,22 @@ def simulate_cadenced(state: ParticleState, cfg: SimConfig, dt,
     return state, max_drift, max_dropped
 
 
+def _ladder_counts(steps: int, rewound: bool, probe: bool = False):
+    """The capacity ladder's counters for one window it ran."""
+    count("ladder.steps_run", steps)
+    if rewound:
+        count("ladder.steps_rewound", steps)
+        count("ladder.windows_rewound")
+    if probe:
+        count("ladder.probes")
+
+
 def _sync(t: torch.Tensor):
     """Wait for the card before a host clock is read: without it a timer
     measures the enqueue, not the work."""
-    if t.device.type == "cuda":
-        torch.cuda.synchronize(t.device)
+    with host_sync("sync.ladder_timer"):
+        if t.device.type == "cuda":
+            torch.cuda.synchronize(t.device)
 
 
 def _culled_window(state: ParticleState, cfg: SimConfig, dt, num_steps: int,
@@ -373,8 +391,8 @@ def _culled_window(state: ParticleState, cfg: SimConfig, dt, num_steps: int,
     def accel_fn(positions, st, c):
         mask = pair_survival_mask(_pad_rows(positions.to(torch.float32), np_),
                                   n, t, nt, c)
-        wp, count = build_pair_worklist(mask, nt)
-        counts.append(count)
+        wp, pairs = build_pair_worklist(mask, nt)
+        counts.append(pairs)
         return pallas_allpairs_forces_pairlist(positions, u, v, c, wp,
                                                t=t) * kick
 
@@ -437,7 +455,8 @@ def simulate_culled(state: ParticleState, cfg: SimConfig, dt, num_steps: int,
     while done < num_steps:
         k = min(window, num_steps - done)
         state, order_total = _culled_sort_phase(state, order_total, cfg)
-        state, counts = _culled_window(state, cfg, dt, k, t)
+        with span("culled.window", steps=k):
+            state, counts = _culled_window(state, cfg, dt, k, t)
         mx = max(counts) if counts else 0
         max_count = max(max_count, mx)
         max_frac = max(max_frac, mx / pairs_total)
@@ -507,14 +526,19 @@ def simulate_dense_adaptive(state: ParticleState, cfg: SimConfig, dt,
         if fallback or probe_pending:
             if fallback and not probe_pending and fb_since_probe >= reprobe_every:
                 fb_since_probe = 0
-                t0 = _timer()
-                outp, (_, misp) = simulate_dense(
-                    state, cfg.replace(cell_capacity=cap), dt, k, nsc=nsc,
-                    cap=cap, ocap=ocap)
-                masked_p = int(misp)
+                with span("ladder.window", cap=cap, steps=k) as win:
+                    t0 = _timer()
+                    outp, (_, misp) = simulate_dense(
+                        state, cfg.replace(cell_capacity=cap), dt, k, nsc=nsc,
+                        cap=cap, ocap=ocap)
+                    with host_sync("sync.ladder_masked"):
+                        masked_p = int(misp)
+                    if masked_p == 0:
+                        _sync(outp.positions)
+                        secp = (_timer() - t0) / k
+                    win.set(outcome="rewound" if masked_p else "probe")
+                _ladder_counts(k, masked_p > 0, probe=True)
                 if masked_p == 0:
-                    _sync(outp.positions)
-                    secp = (_timer() - t0) / k
                     state = outp
                     done += k
                     history.append((k, cap, 0))
@@ -531,11 +555,15 @@ def simulate_dense_adaptive(state: ParticleState, cfg: SimConfig, dt,
                     continue
                 say(f"[adaptive] cell re-probe cap={cap}: still masking — "
                     f"staying culled (window rewound)")
-            t0 = _timer()
-            state, stc = simulate_culled(state, cfg, dt, k, window=min(k, 16))
-            frac = stc["mean_pair_frac"]
-            _sync(state.positions)
-            sec = (_timer() - t0) / k
+            with span("ladder.window", cap="allpairs", steps=k,
+                      outcome="probe" if probe_pending else "committed"):
+                t0 = _timer()
+                state, stc = simulate_culled(state, cfg, dt, k,
+                                             window=min(k, 16))
+                frac = stc["mean_pair_frac"]
+                _sync(state.positions)
+                sec = (_timer() - t0) / k
+            _ladder_counts(k, False, probe=probe_pending)
             done += k
             history.append((k, "allpairs", 0))
             if fallback:
@@ -559,12 +587,17 @@ def simulate_dense_adaptive(state: ParticleState, cfg: SimConfig, dt,
                         f"loses to rung cap={cap} ({(rung_sec or 0) * 1e3:.0f})"
                         f" — staying on the cell path")
             continue
-        t0 = _timer()
-        out, (_, mis) = simulate_dense(state, cfg.replace(cell_capacity=cap),
-                                       dt, k, nsc=nsc, cap=cap, ocap=ocap)
-        masked = int(mis)
-        _sync(out.positions)
-        sec = (_timer() - t0) / k
+        with span("ladder.window", cap=cap, steps=k) as win:
+            t0 = _timer()
+            out, (_, mis) = simulate_dense(
+                state, cfg.replace(cell_capacity=cap), dt, k, nsc=nsc,
+                cap=cap, ocap=ocap)
+            with host_sync("sync.ladder_masked"):
+                masked = int(mis)
+            _sync(out.positions)
+            sec = (_timer() - t0) / k
+            win.set(outcome="rewound" if masked else "committed")
+        _ladder_counts(k, masked > 0)
         if masked > 0:
             if cap < max_cap:
                 new_cap = min(2 * cap, max_cap)

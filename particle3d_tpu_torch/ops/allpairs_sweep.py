@@ -50,6 +50,7 @@ import numpy as np
 import torch
 
 from ..config import SimConfig, f32
+from ..utils.profiling import host_sync
 from . import forces as F
 from .compaction import index_add_rows
 from .params import (LAW_IDS, PF_INV_W, PF_W, directional_scale, gated_scale,
@@ -628,7 +629,8 @@ def build_pair_worklist(mask, nt: int):
     synchronises once with the device to learn the count."""
     if nt + 1 >= 1 << PACK_SHIFT:
         raise ValueError(f"nt={nt} overflows the {PACK_SHIFT}-bit j field")
-    ij = torch.nonzero(mask)
+    with host_sync("sync.worklist"):
+        ij = torch.nonzero(mask)
     count = int(ij.shape[0])
     if count < nt:
         raise ValueError("every tile's self pair must survive")

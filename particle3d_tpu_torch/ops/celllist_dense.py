@@ -36,6 +36,7 @@ from .celllist_sweep import (bin_sid, column_sweep_forces, fold_to_cells,
                              ghost_columns)
 from .compaction import masked_indices
 from .params import pack_params, r2_gate
+from ..utils.profiling import span
 
 # Default overflow-sidecar capacity (see ops/overflow.py); cfg.overflow_capacity
 # overrides it.
@@ -110,46 +111,49 @@ def build_dense(state, cfg: SimConfig, nsc: int, cap: int,
     Capacity overflow (cell rank >= cap) is parked, one row per cell,
     emptiest cells first, as misplaced rows for the sidecar; overflow
     beyond ``ocap`` gets no slot (callers count it as masked)."""
-    n = state.positions.shape[0]
-    dev = state.positions.device
-    u, v = F.pad_features(*F.pair_features(state, cfg))
-    sid = bin_sid(state.positions, cfg, nsc)
-    order = torch.argsort(sid, stable=True)
-    sid_s = sid[order]
-    k_cells = nsc ** 3
-    s_total = k_cells * cap
-    starts = torch.searchsorted(sid_s, torch.arange(k_cells, device=dev))
-    rank = torch.arange(n, device=dev) - starts[sid_s]
-    keep = rank < cap
-    flat = torch.where(keep, sid_s * cap + rank, s_total)
-    pid = _set_drop(torch.full((s_total,), -1, dtype=torch.int64, device=dev),
-                    flat, order)
-    if ocap:
-        oc = min(ocap, k_cells)
-        free = (pid < 0).reshape(k_cells, cap)
-        free_count = free.sum(1)
-        host_cells = torch.argsort(-free_count, stable=True)[:oc]
-        first_free = torch.argmax(free.to(torch.int8), dim=1)
-        free_idx = torch.where(free_count[host_cells] > 0,
-                               host_cells * cap + first_free[host_cells],
-                               s_total)
-        of_rank = torch.cumsum((~keep).to(torch.int64), 0) - 1
-        of_dst = torch.where(~keep & (of_rank < oc),
-                             free_idx[torch.clamp(of_rank, 0, oc - 1)], s_total)
-        pid = _set_drop(pid, of_dst, order)
-    present = pid >= 0
-    safe = torch.where(present, pid, 0)
-    packed = torch.cat([state.positions.float(), state.velocities.float(),
-                        state.accel.float(), u.float(), v.float()], dim=1)
-    rows = torch.where(present[:, None], packed[safe], torch.zeros((), device=dev))
-    data = rows[:, :9].contiguous()
-    feat = rows[:, 9:].contiguous()
-    # grid visibility is alignment, not presence: a parked overflow row in a
-    # wrong cell stays kernel-invisible (the sidecar serves it)
-    cell_of_slot = torch.arange(s_total, device=dev) // cap
-    aligned = present & (bin_sid(data[:, _POS], cfg, nsc) == cell_of_slot)
-    return DenseSim(data=data, feat=feat, pid=pid,
-                    r2=torch.where(aligned, float(r2_gate(cfg)), -1.0))
+    with span("dense.build"):
+        n = state.positions.shape[0]
+        dev = state.positions.device
+        u, v = F.pad_features(*F.pair_features(state, cfg))
+        sid = bin_sid(state.positions, cfg, nsc)
+        order = torch.argsort(sid, stable=True)
+        sid_s = sid[order]
+        k_cells = nsc ** 3
+        s_total = k_cells * cap
+        starts = torch.searchsorted(sid_s, torch.arange(k_cells, device=dev))
+        rank = torch.arange(n, device=dev) - starts[sid_s]
+        keep = rank < cap
+        flat = torch.where(keep, sid_s * cap + rank, s_total)
+        pid = _set_drop(torch.full((s_total,), -1, dtype=torch.int64,
+                                   device=dev), flat, order)
+        if ocap:
+            oc = min(ocap, k_cells)
+            free = (pid < 0).reshape(k_cells, cap)
+            free_count = free.sum(1)
+            host_cells = torch.argsort(-free_count, stable=True)[:oc]
+            first_free = torch.argmax(free.to(torch.int8), dim=1)
+            free_idx = torch.where(free_count[host_cells] > 0,
+                                   host_cells * cap + first_free[host_cells],
+                                   s_total)
+            of_rank = torch.cumsum((~keep).to(torch.int64), 0) - 1
+            of_dst = torch.where(~keep & (of_rank < oc),
+                                 free_idx[torch.clamp(of_rank, 0, oc - 1)],
+                                 s_total)
+            pid = _set_drop(pid, of_dst, order)
+        present = pid >= 0
+        safe = torch.where(present, pid, 0)
+        packed = torch.cat([state.positions.float(), state.velocities.float(),
+                            state.accel.float(), u.float(), v.float()], dim=1)
+        rows = torch.where(present[:, None], packed[safe],
+                           torch.zeros((), device=dev))
+        data = rows[:, :9].contiguous()
+        feat = rows[:, 9:].contiguous()
+        # grid visibility is alignment, not presence: a parked overflow row
+        # in a wrong cell stays kernel-invisible (the sidecar serves it)
+        cell_of_slot = torch.arange(s_total, device=dev) // cap
+        aligned = present & (bin_sid(data[:, _POS], cfg, nsc) == cell_of_slot)
+        return DenseSim(data=data, feat=feat, pid=pid,
+                        r2=torch.where(aligned, float(r2_gate(cfg)), -1.0))
 
 
 def sidecar_indices(ds: DenseSim, ocap: int = OCAP):

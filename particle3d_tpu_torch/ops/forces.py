@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..config import SimConfig, f32
+from ..utils.profiling import host_sync
 
 
 def scalar_like(c, like: torch.Tensor) -> torch.Tensor:
@@ -54,7 +55,9 @@ def pair_features(state, cfg: SimConfig):
         if isinstance(a, torch.Tensor):  # kept in the graph
             a = a.to(dev, torch.float32)
         else:
-            a = torch.as_tensor(np.asarray(a, np.float32), device=dev)
+            # a blocking copy from the host: it waits for the card's queue
+            with host_sync("sync.features"):
+                a = torch.as_tensor(np.asarray(a, np.float32), device=dev)
         u = a[state.species]  # U[i] = A[species_i, :] (= onehot @ A)
         v = torch.nn.functional.one_hot(state.species, cfg.id_count).to(f32t)
     elif cfg.force_law == "gravity":

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from ..config import SimConfig
+from ..utils.profiling import host_sync
 from .camera import Camera, projection_matrix, view_matrix
 
 BORDER_COLOR_ID = 254
@@ -170,7 +171,10 @@ def _decode(img_keys, cfg: SimConfig):
     palette[:colors.shape[0]] = colors
     palette[BORDER_COLOR_ID] = 0.6
     palette[BACKGROUND_ID] = [0.02, 0.02, 0.03]
-    img = torch.as_tensor(palette, device=img_keys.device)[ids.to(torch.int64)]
+    # a blocking copy from the host: it waits for the frame's queued work
+    with host_sync("sync.render_palette"):
+        pal = torch.as_tensor(palette, device=img_keys.device)
+    img = pal[ids.to(torch.int64)]
     return (torch.clamp(img, 0.0, 1.0) * 255.0).to(torch.uint8)
 
 
@@ -186,8 +190,12 @@ def render_frame(positions, species, cfg: SimConfig, cam: Camera,
     if method not in ("dilate", "scatter"):
         raise ValueError(f"unknown render method {method!r}")
     dev = positions.device
-    vm = torch.as_tensor(view_matrix(cam), device=dev)
-    pm = torch.as_tensor(projection_matrix(cam, width / height), device=dev)
+    # blocking copies from the host
+    with host_sync("sync.render_upload"):
+        vm = torch.as_tensor(view_matrix(cam), device=dev)
+    with host_sync("sync.render_upload"):
+        pm = torch.as_tensor(projection_matrix(cam, width / height),
+                             device=dev)
     fov = np.deg2rad(np.float32(cam.fov_deg))
     focal_px = np.float32(height * 0.5) / np.tan(fov / np.float32(2.0))
     # the splat radius' numerator, rounded to float32 as the JAX package's
