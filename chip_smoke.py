@@ -6,12 +6,12 @@ NVIDIA Hopper GPU.
 
 Runs from the root of a checkout and builds the port's kernels from their
 sources: the column sweep K1 (particle3d_tpu_torch/csrc/celllist_sweep.cu),
-the all-pairs kernels K2, K3 and K4 (csrc/allpairs_sweep.cu) and the
-ghost-image sweep K5 (csrc/allpairs_mxu.cu), and the C++ reference engine
-(native/oracle.cpp). Phases, in order; any failure exits non-zero:
+the all-pairs kernels K2, K3 and K4 (csrc/allpairs_sweep.cu), the
+ghost-image sweep K5 (csrc/allpairs_mxu.cu) and the renderer's splat
+kernels (csrc/splat.cu), and the C++ reference engine (native/oracle.cpp). Phases, in order; any failure exits non-zero:
 
   1. device: name, and power limit as nvidia-smi reports it;
-  2. build the three kernel libraries with nvcc and the reference engine
+  2. build the four kernel libraries with nvcc and the reference engine
      with g++, in parallel (seconds, registers and spills of every kernel);
   3. K1 against its plain torch version on the same operands: the
      particle_life_large layout at N=262,144 (grid 24), periodic and
@@ -119,7 +119,17 @@ ghost-image sweep K5 (csrc/allpairs_mxu.cu), and the C++ reference engine
      build), one K1 launch a step and masked 0 in each, ms per batch; the
      terminal fallback: phase 11's blob in an app with max_cap 64 escalates,
      then commits on simulate_culled (K4), bit-identical to simulate_culled
-     from the same start; app.render at 640x480, both methods, against
+     from the same start; the splat kernels (csrc/splat.cu) against the
+     plain torch renderer, both on the card, at 640x480 on the app's
+     state: every pixel equal at the app's pose (with and without the
+     border), inside the box at its centre (footprints 7, 5 and 3: radii
+     reach footprint / 2, so every offset of the dilate covers) and
+     inside the box turned (particles behind the camera and off screen),
+     and at the app's pose from positions that are a view of wider rows,
+     one launch of each kernel a frame; both paths' CUDA-event ms and
+     device operations a frame, each kernel's ms against its bytes'
+     bound, and 20 profiled frames' render.frame spans all on the kernel
+     path; app.render at 640x480, both methods, against
      the same frame rendered on the CPU (>= 99.9% of pixels equal),
      ms/frame; app.save, SimulationApp.load and four more steps against
      the uninterrupted app (bit-identical when both rebuild their layout);
@@ -225,7 +235,8 @@ ghost-image sweep K5 (csrc/allpairs_mxu.cu), and the C++ reference engine
      restore MB/s; the directory deleted;
  30. examples/render_demo.py on particle_life_large: 16 warm steps, 8
      frames of 4 steps at 480x360 into a GIF under build/chip_smoke/ (8
-     frames), one K1 launch a step, ms a frame;
+     frames), one K1 launch a step and one launch of each splat kernel a
+     frame, ms a frame;
  31. the bench command: particle3d_tpu_torch.bench.main, the function
      `python -m particle3d_tpu_torch bench` runs, in process with every
      launch count at 0: its one JSON line (logged) holds exactly the keys
@@ -386,6 +397,7 @@ def phase_build():
     from particle3d_tpu_torch import native
     from particle3d_tpu_torch.ops import (allpairs_mxu_sweep, allpairs_sweep,
                                           celllist_sweep)
+    from particle3d_tpu_torch.render import splat
 
     def build_native():
         native.load()
@@ -394,11 +406,13 @@ def phase_build():
     t0 = time.perf_counter()
     libs = {"K1": celllist_sweep.build_kernel,
             "K2-K4": allpairs_sweep.build_kernel,
-            "K5": allpairs_mxu_sweep.build_kernel, "native": build_native}
+            "K5": allpairs_mxu_sweep.build_kernel,
+            "splat": splat.build_kernel, "native": build_native}
     with ThreadPoolExecutor(len(libs)) as pool:  # one compiler per source
         logs = dict(zip(libs, pool.map(lambda build: build(), libs.values())))
-    log(f"[2] K1, K2-K4, K5 (nvcc) and the native reference engine (g++) "
-        f"built and loaded in {time.perf_counter() - t0:.2f} s")
+    log(f"[2] K1, K2-K4, K5, the splat kernels (nvcc) and the native "
+        f"reference engine (g++) built and loaded in "
+        f"{time.perf_counter() - t0:.2f} s")
     for name, build_log in logs.items():
         for line in _ptxas_summary(build_log):
             log(f"  {name}: {line}")
@@ -408,13 +422,19 @@ _LAWS = ("particle_life", "lennard_jones", "gravity", "spring")
 
 
 def _ptxas_summary(build_log):
-    """One line per compiled kernel (family, law, wrap, feature width):
-    registers, spill bytes and shared memory, from nvcc's -Xptxas -v."""
+    """One line per compiled kernel (family, law, wrap, feature width; the
+    splat kernels' species type or window): registers, spill bytes and
+    shared memory, from nvcc's -Xptxas -v."""
     out, entry, spills = [], None, ""
     for line in build_log.splitlines():
         m = re.search(r"(column_sweep|rect|tri|pairlist|mxu)_kernelI"
                       r"((?:L[ib]\d+E)+)", line)
-        if m:
+        splat = re.search(r"(seed|dilate)_kernelI(i|l|Li(\d)E)E", line)
+        if splat:
+            arg = {"i": "int32", "l": "int64"}.get(splat.group(2),
+                                                   f"HALF={splat.group(3)}")
+            entry = f"{splat.group(1)}<{arg}>"
+        elif m:
             args = [int(a) for a in re.findall(r"L[ib](\d+)E", m.group(2))]
             extra = {2: "", 3: f", P={args[-1]}",
                      4: f", halo={args[2]}, P={args[-1]}"}[len(args)]
@@ -1886,6 +1906,7 @@ def phase_app():
                    (want.positions, want.velocities))
     del blob, b0, want
 
+    splat_rec = _render_kernel_check(app)
     log(f"  render 640x480 at N={N_LARGE}")
     render_ms = {}
     host = to_device(app.state, "cpu")
@@ -1928,7 +1949,143 @@ def phase_app():
     del other
     return {"cadenced_ms_per_step": cad_ms, "first_batch_ms": ms_first,
             "cadenced_batch_ms": ms_cad, "carry_batch_ms": (ms_c1, ms_c2),
-            "render_ms": render_ms}, app
+            "render_ms": render_ms, "splat": splat_rec}, app
+
+
+def _render_poses(app):
+    """(label, camera, render_frame keywords) of the poses phase 18 holds
+    the splat kernels to the plain version on."""
+    from particle3d_tpu_torch.render.camera import rotate_camera
+
+    cam = app.camera
+    w = float(np.asarray(app.cfg.world_size))
+    centre = cam.replace(position=np.float32([0.0, 0.0, 0.0]))
+    inside = rotate_camera(cam.replace(
+        position=np.float32([0.3 * w, -0.2 * w, 0.25 * w])), -25.0, 40.0)
+    return [("the app's pose", cam, {}),
+            ("the app's pose, no border", cam, {"draw_border": False}),
+            ("inside the box at its centre", centre, {}),
+            ("inside the box at its centre, footprint 5", centre,
+             {"footprint": 5}),
+            ("inside the box at its centre, footprint 3", centre,
+             {"footprint": 3}),
+            ("inside the box, turned: particles behind and off screen",
+             inside, {})]
+
+
+def _splat_radii(pos, cam, footprint=7):
+    """(share of the particles ahead of the camera, share of those whose
+    splat radius reaches footprint / 2) at a pose."""
+    from particle3d_tpu_torch.render.camera import view_matrix
+    from particle3d_tpu_torch.render.splat import _seed_params
+
+    vm = torch.as_tensor(view_matrix(cam), device=pos.device)
+    depth = -(pos @ vm[2, :3] + vm[2, 3])
+    r_num = float(_seed_params(cam, 640, 480, footprint)[32])
+    ahead = depth > 1e-6
+    full = ahead & (r_num / depth.clamp(min=1e-6) >= footprint / 2.0)
+    return float(ahead.float().mean()), float(full.sum() / ahead.sum())
+
+
+def _render_kernel_check(app):
+    """render_frame's splat kernels against its plain torch version, both
+    on the card, at 640x480 on the app's state: every pixel equal at each
+    of ``_render_poses``; launches and device ms of a frame of each."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from particle3d_tpu_torch.ops import kernel_launches, reset_kernel_launches
+    from particle3d_tpu_torch.render import splat
+    from particle3d_tpu_torch.utils.profiling import recorded
+
+    pos, spc, cfg = app.state.positions, app.state.species, app.cfg
+    log(f"  the splat kernels against the plain version on the card, "
+        f"640x480, N={pos.shape[0]}; the app's positions have row stride "
+        f"{pos.stride(0)}")
+    wide = torch.full((pos.shape[0], 9), float("nan"), device=pos.device)
+    wide[:, 3:6] = pos  # the kernel reads rows of any stride, as views
+    cases = [(label, cam, kw, pos) for label, cam, kw in _render_poses(app)]
+    cases.append(("the app's pose, positions a view of 9-float rows",
+                  app.camera, {}, wide[:, 3:6]))
+    for label, cam, kw, p in cases:
+        reset_kernel_launches()
+        got = splat.render_frame(p, spc, cfg, cam, 640, 480, **kw)
+        launches = _nonzero(kernel_launches())
+        want = splat._render_plain(
+            p, spc, cfg, cam, 640, 480, method="dilate",
+            **{"footprint": 7, "draw_border": True, "border_samples": 128,
+               **kw})
+        sync()
+        ahead, full = _splat_radii(p, cam, kw.get("footprint", 7))
+        differ = int((got != want).any(-1).sum())
+        lit = float((want != want[0, 0]).any(-1).float().mean())
+        log(f"  {label}: {differ} of {640 * 480} pixels differ, {lit:.4f} "
+            f"lit; {ahead:.4f} of the particles ahead, {full:.4f} of those "
+            f"at the largest radius; launches {launches}")
+        if differ or launches != {"splat_seed": 1, "splat_dilate": 1}:
+            raise AssertionError(f"splat kernels at {label}: {differ} pixels "
+                                 f"differ from the plain version, launches "
+                                 f"{launches}")
+        if label.startswith("inside the box at its centre") and full <= 0:
+            raise AssertionError(f"{label}: no splat reaches its largest "
+                                 f"radius; the dilate's offsets go untested")
+
+    cam = app.camera
+
+    def kernel():
+        return splat.render_frame(pos, spc, cfg, cam, 640, 480)
+
+    def plain():
+        return splat._render_plain(pos, spc, cfg, cam, 640, 480, footprint=7,
+                                   draw_border=True, border_samples=128,
+                                   method="dilate")
+
+    rec = {}
+    for name, fn, reps in (("kernel", kernel, 50), ("plain", plain, 10)):
+        ms, _ = timed_ms(fn, reps)
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn().cpu()
+        host_ms = (time.perf_counter() - t0) / reps * 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync()
+        ops = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        rec[name] = {"ms": ms, "host_ms_with_copy": host_ms,
+                     "device_ops": len(ops)}
+        log(f"  {name} path at the app's pose: {ms:.4f} ms a frame (CUDA "
+            f"events, mean of {reps}), {host_ms:.4f} ms with the copy to "
+            f"the host (host clock), {len(ops)} device operations a frame")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(20):
+            kernel()
+        sync()
+    paths = [x.attrs.get("path") for x in recorded().spans
+             if x.name == "render.frame"]
+    log(f"  render.frame spans of 20 profiled frames: {paths.count('kernel')} "
+        f"on the kernel path, {len(paths) - paths.count('kernel')} other")
+    if paths != ["kernel"] * 20:
+        raise AssertionError(f"render.frame spans: {paths}")
+    per = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per.setdefault(e.name, []).append(e.time_range.elapsed_us() / 1e3)
+    n, nb = pos.shape[0], 12 * 128
+    nbytes = {"seed_kernel": n * (12 + spc.element_size()) + nb * 12
+              + 640 * 480 * 4,
+              "dilate_kernel": 640 * 480 * (4 + 3)}
+    for name, times in sorted(per.items()):
+        ms = sum(times) / len(times)
+        kname = next((k for k in nbytes if k in name), None)
+        text = ""
+        if kname:
+            b = bound(0, (0, 0), nbytes[kname])
+            rec[kname] = {"ms": ms, "bound_ms": b[0], "bytes": nbytes[kname]}
+            text = (f", bound {b[0]:.5f} ms ({nbytes[kname] / 1e6:.3f} MB), "
+                    f"{100 * b[0] / ms:.2f}% of it")
+        log(f"  {name[:70]}: {len(times)} launches, {ms:.5f} ms each{text}")
+    return rec
 
 
 def _request(url, data=None):
@@ -3019,7 +3176,8 @@ def phase_slab16m():
 
 def phase_render_demo():
     """examples/render_demo on particle_life_large: a short warm-up and
-    DEMO_FRAMES frames at 480 x 360 into a GIF, one K1 launch a step."""
+    DEMO_FRAMES frames at 480 x 360 into a GIF, one K1 launch a step and
+    one launch of each splat kernel a frame."""
     from PIL import Image
 
     from particle3d_tpu_torch.examples import render_demo as RD
@@ -3033,7 +3191,9 @@ def phase_render_demo():
                          steps_per_frame=4, warm_steps=DEMO_WARM, width=480,
                          height=360, device=DEVICE,
                          say=lambda m: log(f"  {m}"))
-    _expect("render_demo", kernel_launches(), {"celllist_sweep": rec["steps"]})
+    _expect("render_demo", kernel_launches(),
+            {"celllist_sweep": rec["steps"], "splat_seed": DEMO_FRAMES,
+             "splat_dilate": DEMO_FRAMES})
     PATH_LAUNCHES["celllist_sweep"][
         f"render_demo 262k, {DEMO_WARM} + {DEMO_FRAMES} x 4 steps"] = \
         rec["steps"]

@@ -1,7 +1,8 @@
 // A CPU emulation of the CUDA subset that the port's kernels use
-// (csrc/celllist_sweep.cu, allpairs_sweep.cu, allpairs_mxu.cu), so that g++
-// can compile a kernel's source and a test can run its logic on the CPU
-// (tests/test_torch_k1_emulated.py, tests/test_torch_allpairs_emulated.py).
+// (csrc/celllist_sweep.cu, allpairs_sweep.cu, allpairs_mxu.cu, splat.cu), so
+// that g++ can compile a kernel's source and a test can run its logic on the
+// CPU (tests/test_torch_k1_emulated.py, tests/test_torch_allpairs_emulated.py,
+// tests/test_torch_splat_kernel.py).
 // Blocks run one after another; the threads of a block are std::threads;
 // __syncthreads is a std::barrier over the block, and __ballot_sync,
 // __shfl_xor_sync and the warp-wide TF32 mma one over the warp.
@@ -9,7 +10,9 @@
 // runs. The test rewrites each `<<<grid, block, 0, stream>>>` launch into a
 // call of emu_launch. Only the logic is emulated: arithmetic is the host's
 // (no MUFU, and the device's FMA contraction is not reproduced), except
-// cvt.rna.tf32.f32, which rounds as the hardware does.
+// cvt.rna.tf32.f32, which rounds as the hardware does. The rounded
+// intrinsics (__fmul_rn and kin) are the host's IEEE float operations,
+// which they are on the card too.
 #pragma once
 #define P3T_CUDA_EMULATION 1
 #include <barrier>
@@ -29,6 +32,7 @@
 #define __launch_bounds__(...)
 #define __shared__ static
 #define __align__(n) __attribute__((aligned(n)))
+#define __grid_constant__
 
 struct dim3 {
   unsigned x, y, z;
@@ -172,6 +176,22 @@ inline int atomicMax(int* a, int v) {
   const int old = *a;
   if (v > old) *a = v;
   return old;
+}
+inline int atomicMin(int* a, int v) {
+  std::lock_guard<std::mutex> lock(emu_atomic_mutex);
+  const int old = *a;
+  if (v < old) *a = v;
+  return old;
+}
+
+inline float __fadd_rn(float a, float b) { return a + b; }
+inline float __fsub_rn(float a, float b) { return a - b; }
+inline float __fmul_rn(float a, float b) { return a * b; }
+inline float __fdiv_rn(float a, float b) { return a / b; }
+inline int __float_as_int(float x) {
+  int i;
+  std::memcpy(&i, &x, sizeof i);
+  return i;
 }
 
 template <class Kernel, class... Args>
